@@ -1,0 +1,73 @@
+"""Carry workloads and weights across from the JAX package, as numpy.
+
+The port never imports fks_tpu; callers hand over fks_tpu's arrays as
+numpy (``np.asarray`` of each field) and get the port's tensors back.
+"""
+from __future__ import annotations
+
+import json
+from pathlib import Path
+from typing import Mapping, Tuple
+
+import numpy as np
+import torch
+
+from fks_tpu_torch.data.entities import ClusterArrays, PodArrays, Workload
+from fks_tpu_torch.models.parametric import NUM_FEATURES
+
+CLUSTER_FIELDS = ("cpu_total", "mem_total", "gpu_declared", "num_gpus",
+                  "gpu_milli_total", "gpu_mem_total", "gpu_mask", "node_mask")
+POD_FIELDS = ("cpu", "mem", "num_gpu", "gpu_milli", "creation_time",
+              "duration", "tie_rank", "pod_mask")
+
+
+def _tensor(a, dtype) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=dtype, copy=True))
+
+
+def _fields(arrays: Mapping, names) -> dict:
+    return {k: _tensor(arrays[k], bool if k.endswith("mask") else np.int32)
+            for k in names}
+
+
+def workload_from_numpy(cluster: Mapping, pods: Mapping,
+                        device="cpu") -> Workload:
+    """The port's ``Workload`` from fks_tpu's arrays: ``cluster`` maps each
+    of ``CLUSTER_FIELDS`` (and optionally ``node_ids``) to a numpy array,
+    ``pods`` each of ``POD_FIELDS`` (and optionally ``pod_ids``)."""
+    wl = Workload(
+        cluster=ClusterArrays(**_fields(cluster, CLUSTER_FIELDS),
+                              node_ids=tuple(cluster.get("node_ids", ()))),
+        pods=PodArrays(**_fields(pods, POD_FIELDS),
+                       pod_ids=tuple(pods.get("pod_ids", ()))))
+    return wl.to(device)
+
+
+def workload_to_numpy(workload: Workload) -> Tuple[dict, dict]:
+    """(cluster, pods) dicts of numpy arrays — ``workload_from_numpy``'s
+    inverse."""
+    c, p = workload.cluster, workload.pods
+    cluster = {k: getattr(c, k).cpu().numpy() for k in CLUSTER_FIELDS}
+    pods = {k: getattr(p, k).cpu().numpy() for k in POD_FIELDS}
+    cluster["node_ids"], pods["pod_ids"] = c.node_ids, p.pod_ids
+    return cluster, pods
+
+
+def params_from_numpy(w, device="cpu") -> torch.Tensor:
+    """A weight matrix f32[P, 16] (or one vector [16]) as a tensor."""
+    arr = np.asarray(w, dtype=np.float32)
+    if arr.shape[-1] != NUM_FEATURES or arr.ndim not in (1, 2):
+        raise ValueError(f"expected weights of shape [P, {NUM_FEATURES}] or "
+                         f"[{NUM_FEATURES}], got {arr.shape}")
+    return torch.from_numpy(arr.copy()).to(device)
+
+
+def load_champion_weights(path, device="cpu") -> torch.Tensor:
+    """The ``"weights"`` list (16 floats) of a discovered-policy record,
+    e.g. ``policies/discovered/*.json``, as f32[16]."""
+    with open(Path(path)) as f:
+        record = json.load(f)
+    if "weights" not in record:
+        raise ValueError(f"{path} has no 'weights' (not a parametric "
+                         "champion)")
+    return params_from_numpy(record["weights"], device)

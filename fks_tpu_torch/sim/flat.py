@@ -1,0 +1,386 @@
+"""The flat (slot-per-pod) event-queue engine, lanes written out.
+
+Port of fks_tpu.sim.flat for the default flags: best_fit or first_fit GPU
+allocation, packed or unpacked ``aux``, ``track_ctime`` on or off. It is
+the fused kernel's specification (csrc/fused_sim.cu) and its plain
+version.
+
+One slot per pod, in tie-rank order: ``ev_time[L, Q]`` holds each slot's
+pending event time (INF = none) and ``aux[L, Q]`` its scheduling state
+(-1 fresh CREATE, -2 waiting after a failed placement, >= 0 placed as
+``(node << G) | gpu_bits`` when that fits 31 bits, else the node index
+with the bits in ``aux_gpus``). Each step pops, in every lane at once, the
+slot with the lexicographic (time, slot) minimum — the reference's
+equal-time tie rule — and applies the DELETE refund or the CREATE
+placement. A failed CREATE retries at ``1 + earliest pending DELETE`` or
+is dropped when no DELETE is pending (fks_tpu.sim.flat docstring: the
+engine's defined retry rule). The step is self-masking: a finished lane
+is a no-op, so one host loop drives all lanes until none is active.
+
+The step updates the queue tensors (``ev_time``, ``aux``, ``aux_gpus``,
+``pod_ctime``, ``wait_hist``) in place instead of copying them per event.
+
+Not ported yet (a ValueError names the slice): fault timelines,
+``node_prefilter_k``, ``state_pack``, ``watchdog``, ``decision_trace``,
+``probe_score``, ``validate_invariants`` and the segmented runner.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+
+from fks_tpu_torch.data.entities import Workload
+from fks_tpu_torch.ops.allocator import best_fit_gpus, first_fit_gpus
+from fks_tpu_torch.sim.engine import (
+    FinalView, SimConfig, _node_view, finalize_fields, loop_tables,
+)
+from fks_tpu_torch.sim.types import FlatState, PodView, PolicyFn, SimResult
+
+INF = 2**31 - 1  # empty-slot sentinel (int32 max)
+
+AUX_FRESH = -1    # CREATE pending, never failed
+AUX_WAITING = -2  # retried CREATE pending or dropped (in the waiting set)
+
+#: steps between the host's checks that some lane is still active; the
+#: step is self-masking, so the extra steps of the last round are no-ops
+SYNC_EVERY = 16
+
+_LATER = "a later slice of the port (ROADMAP queue 1)"
+
+
+def check_ported(workload: Workload, cfg: SimConfig) -> None:
+    """Raise ValueError for an option of fks_tpu's flat engine that the
+    port does not implement yet."""
+    pending = [
+        (workload.faults is not None, "fault-injected workloads"),
+        (bool(cfg.node_prefilter_k), "node_prefilter_k"),
+        (cfg.state_pack, "state_pack"),
+        (cfg.watchdog, "watchdog"),
+        (cfg.decision_trace, "decision_trace"),
+        (cfg.probe_score, "probe_score"),
+        (cfg.validate_invariants, "validate_invariants"),
+    ]
+    for on, name in pending:
+        if on:
+            raise ValueError(f"{name} is not ported yet; it waits for "
+                             f"{_LATER}: the flat engine's remaining flags")
+    if cfg.gpu_allocator not in ("best_fit", "first_fit"):
+        raise ValueError(f"unknown gpu_allocator {cfg.gpu_allocator!r}")
+
+
+def _node_bits(n_padded: int) -> int:
+    return max(1, (max(n_padded, 1) - 1).bit_length())
+
+
+def _packable(n_padded: int, g_padded: int) -> bool:
+    """Can (node, gpu_bits) share one non-negative int32?"""
+    return _node_bits(n_padded) + g_padded <= 31
+
+
+def rank_perm(pod_mask: torch.Tensor, tie_rank: torch.Tensor) -> torch.Tensor:
+    """Slot order: real pods by ascending tie_rank, padding last (stable)."""
+    key = torch.where(pod_mask, tie_rank.to(torch.int64), INF)
+    return torch.sort(key, stable=True).indices
+
+
+def hist_size(workload: Workload, cfg: SimConfig) -> int:
+    """Waiting-histogram width; must exceed the trace's max gpu_milli."""
+    p = workload.pods
+    max_milli = int(p.gpu_milli.max()) if p.p_padded else 0
+    size = (cfg.wait_hist_size if cfg.wait_hist_size is not None
+            else max(1001, max_milli + 2))
+    if size <= max_milli:
+        raise ValueError(
+            f"wait_hist_size {size} <= trace max gpu_milli; "
+            "fragmentation min_needed would be miscounted")
+    return size
+
+
+def initial_state(workload: Workload, cfg: SimConfig,
+                  lanes: int = 1) -> FlatState:
+    """t=0 carry for ``lanes`` identical lanes on the workload's device:
+    every real pod's slot (tie-rank order) holds its CREATE time."""
+    check_ported(workload, cfg)
+    c, p = workload.cluster, workload.pods
+    dev = workload.device
+    i32 = torch.int32
+    perm = rank_perm(p.pod_mask, p.tie_rank)
+    ev_time = torch.where(p.pod_mask[perm], p.creation_time[perm], INF)
+    pp = p.p_padded
+    f = cfg.score_dtype
+
+    def lane(x):
+        return x.expand((lanes,) + tuple(x.shape)).clone()
+
+    zeros = torch.zeros(lanes, dtype=i32, device=dev)
+    return FlatState(
+        ev_time=lane(ev_time.to(i32)),
+        aux=torch.full((lanes, pp), AUX_FRESH, dtype=i32, device=dev),
+        aux_gpus=(None if _packable(c.n_padded, c.g_padded)
+                  else torch.zeros((lanes, pp), dtype=torch.int64,
+                                   device=dev)),
+        pending=torch.full((lanes,), int(p.pod_mask.sum()), dtype=i32,
+                           device=dev),
+        cpu_left=lane(c.cpu_total), mem_left=lane(c.mem_total),
+        gpu_left=lane(c.gpu_declared),
+        gpu_milli_left=lane(c.gpu_milli_total),
+        pod_ctime=lane(p.creation_time[perm]),
+        wait_hist=torch.zeros((lanes, hist_size(workload, cfg)), dtype=i32,
+                              device=dev),
+        events_processed=zeros, snap_idx=zeros.clone(),
+        snap_sums=torch.zeros((lanes, 4), dtype=f, device=dev),
+        frag_sum=torch.zeros(lanes, dtype=f, device=dev),
+        frag_count=zeros.clone(), max_nodes=zeros.clone(),
+        failed=torch.zeros(lanes, dtype=torch.bool, device=dev),
+        steps=zeros.clone(),
+    )
+
+
+def lane_active(s: FlatState, max_steps: int) -> torch.Tensor:
+    """bool[L] termination predicate — the loop condition and the step's
+    self-mask, so the two cannot diverge."""
+    return (s.pending > 0) & ~s.failed & (s.steps < max_steps)
+
+
+def build_step(workload: Workload, policy: PolicyFn, cfg: SimConfig,
+               ktable, max_steps: int) -> Callable[[FlatState], FlatState]:
+    """One event in every lane. ``policy(PodView, NodeView) -> i32[L, N]``
+    scores all lanes at once.
+
+    Per-lane scalars are ``[L, 1]`` columns inside the step. Work that
+    only some events need (refunds, scoring, GPU picks, fragmentation,
+    snapshots) is skipped when no lane needs it: those branches only ever
+    add masked-out zeros, so skipping them changes no result."""
+    check_ported(workload, cfg)
+    c, p = workload.cluster, workload.pods
+    dev = workload.device
+    i32, i64 = torch.int32, torch.int64
+    n, g = c.n_padded, c.g_padded
+    f = cfg.score_dtype
+    alloc = (best_fit_gpus if cfg.gpu_allocator == "best_fit"
+             else first_fit_gpus)
+    packed = _packable(n, g)
+    tot = [int(c.cpu_total.sum()), int(c.mem_total.sum()),
+           int(c.num_gpus.sum()), int(c.gpu_milli_total.sum())]
+    totals = torch.tensor(tot, dtype=i64, device=dev)
+    denom = totals.clamp(min=1).to(f)
+    zero_f = torch.zeros((), dtype=f, device=dev)
+    g_iota = torch.arange(g, dtype=i64, device=dev)
+    g_pow = torch.ones((), dtype=i64, device=dev) << g_iota
+    n_iota = torch.arange(n, dtype=i32, device=dev)
+    node_mask = c.node_mask.to(i32)
+    ktable = torch.as_tensor(ktable, dtype=i32, device=dev)
+    klen = int(ktable.shape[0])
+
+    # pod features permuted into slot (tie-rank) order: one row per pod
+    perm = rank_perm(p.pod_mask, p.tie_rank)
+    feat = torch.stack([p.cpu, p.mem, p.num_gpu, p.gpu_milli, p.duration],
+                       dim=-1)[perm].to(i32)  # [Q, 5]
+
+    def step(s: FlatState) -> FlatState:
+        lanes = s.lanes
+        act = lane_active(s, max_steps)[:, None]
+        no = torch.zeros((lanes, 1), dtype=torch.bool, device=dev)
+
+        # ---- pop: lexicographic (time, slot) minimum; torch.min returns
+        # the first index among equal minima
+        t, col = torch.min(s.ev_time, dim=1, keepdim=True)
+        pcpu, pmem, pngpu, pmilli, pdur = feat[col[:, 0]].split(1, dim=1)
+        aux_s = s.aux.gather(1, col)
+        is_del = act & (aux_s >= 0)
+        create = act & (aux_s < 0)
+        was_waiting = aux_s == AUX_WAITING
+        gpu_pod = pngpu > 0
+
+        # ---- DELETION: refund the held node and GPUs
+        cpu_left, mem_left = s.cpu_left, s.mem_left
+        gpu_left, gml = s.gpu_left, s.gpu_milli_left
+        if bool(is_del.any()):
+            if packed:
+                held_node = aux_s >> g
+                held_bits = (aux_s & ((1 << g) - 1)).to(i64)
+            else:
+                held_node = aux_s
+                held_bits = s.aux_gpus.gather(1, col)
+            oh_a = ((n_iota == held_node) & is_del).to(i32)  # [L, N]
+            cpu_left = cpu_left + oh_a * pcpu
+            mem_left = mem_left + oh_a * pmem
+            gpu_left = gpu_left + oh_a * pngpu
+            sel_bits = ((held_bits >> g_iota) & 1).to(i32)  # [L, G]
+            gml = gml + (oh_a[:, :, None] * sel_bits[:, None, :]
+                         * pmilli[:, :, None])
+
+        # ---- CREATION: strict argmax placement, ties to the lowest node
+        placed = pl = alloc_fail = no
+        w = torch.zeros((lanes, 1), dtype=torch.int64, device=dev)
+        new_bits = torch.zeros((lanes, 1), dtype=i64, device=dev)
+        if bool(create.any()):
+            pod = PodView(pcpu, pmem, pngpu, pmilli, t, pdur)
+            nodes = _node_view(c, cpu_left, mem_left, gpu_left, gml)
+            scores = policy(pod, nodes) * node_mask
+            w = scores.argmax(dim=1, keepdim=True)  # first maximal index
+            placed = create & (scores.gather(1, w) > 0)
+        if bool(placed.any()):
+            rows = torch.arange(lanes, device=dev)
+            sel, ok = alloc(gml[rows, w[:, 0]], c.gpu_mask[w[:, 0]],
+                            pmilli[:, 0], pngpu[:, 0])
+            alloc_fail = placed & gpu_pod & ~ok[:, None]  # reference raises
+            pl = placed & ~alloc_fail
+            oh_w = ((n_iota == w) & pl).to(i32)  # [L, N]
+            cpu_left = cpu_left - oh_w * pcpu
+            mem_left = mem_left - oh_w * pmem
+            gpu_left = gpu_left - oh_w * pngpu
+            gml = gml - (oh_w[:, :, None] * sel.to(i32)[:, None, :]
+                         * pmilli[:, :, None])
+            new_bits = (sel * g_pow).sum(dim=1, keepdim=True)
+
+        # ---- failed creation: waiting histogram + fragmentation + retry
+        failp = create & ~placed
+        any_fail = bool(failp.any())
+        hist = s.wait_hist
+        if any_fail or bool(pl.any()):
+            hdelta = ((failp & ~was_waiting & gpu_pod).to(i32)
+                      - (pl & was_waiting & gpu_pod).to(i32))
+            hist.scatter_add_(1, pmilli.clamp(0, hist.shape[1] - 1), hdelta)
+        frag_sum = s.frag_sum
+        retry = dropped = no
+        rt = t  # any value: only read where retry
+        if any_fail:  # frag_score and the retry rule only count where failp
+            hvals = hist > 0
+            has_w = hvals.any(dim=1)
+            min_needed = hvals.to(i32).argmax(dim=1)  # first waiting bucket
+            frag_free = gml * (c.gpu_mask & (gml > 0)
+                               & (gml < min_needed[:, None, None]))
+            frag_score = torch.where(
+                has_w & (tot[3] > 0),
+                frag_free.sum(dim=(1, 2)).to(f) / denom[3], zero_f)
+            frag_sum = frag_sum + torch.where(failp[:, 0], frag_score, zero_f)
+            # retry at 1 + the earliest pending DELETE (queue not yet
+            # rewritten this step), or drop when none is pending
+            next_del = torch.where(s.aux >= 0, s.ev_time, INF).amin(
+                dim=1, keepdim=True)
+            found = next_del < INF
+            retry, dropped = failp & found, failp & ~found
+            rt = next_del + 1
+
+        # ---- slot rewrite (active lanes only; the slot held time t)
+        new_t = torch.where(pl, t + pdur, torch.where(retry, rt, INF))
+        enc = (w.to(i32) << g) | new_bits.to(i32) if packed else w.to(i32)
+        new_aux = torch.where(pl, enc, torch.where(failp, AUX_WAITING, aux_s))
+        s.ev_time.scatter_(1, col, torch.where(act, new_t, t))
+        s.aux.scatter_(1, col, torch.where(act, new_aux, aux_s))
+        if not packed:
+            s.aux_gpus.scatter_(1, col, torch.where(
+                pl, new_bits, s.aux_gpus.gather(1, col)))
+        if cfg.track_ctime:
+            s.pod_ctime.scatter_(1, col, torch.where(
+                retry, rt, s.pod_ctime.gather(1, col)))
+        pending = s.pending - (is_del | dropped)[:, 0].to(i32)
+
+        # ---- evaluator bookkeeping
+        valid = (act & ~alloc_fail)[:, 0]
+        events = s.events_processed + valid.to(i32)
+        fire = valid & (s.snap_idx < klen) & (
+            events >= ktable[s.snap_idx.clamp(max=klen - 1)])
+        snap_sums, snap_idx = s.snap_sums, s.snap_idx
+        if bool(fire.any()):
+            used = torch.stack([
+                totals[0] - cpu_left.sum(dim=1, dtype=i64),
+                totals[1] - mem_left.sum(dim=1, dtype=i64),
+                (c.num_gpus - gpu_left).sum(dim=1, dtype=i64),
+                totals[3] - gml.sum(dim=(1, 2), dtype=i64),
+            ], dim=1).to(f)
+            utils = torch.where(totals <= 0, zero_f, used / denom)
+            snap_sums = snap_sums + torch.where(fire[:, None], utils, zero_f)
+            snap_idx = snap_idx + fire.to(i32)
+        active_nodes = (c.node_mask & (
+            (cpu_left < c.cpu_total) | (mem_left < c.mem_total)
+            | (gpu_left < c.num_gpus))).sum(dim=1, dtype=i32)
+        max_nodes = torch.maximum(s.max_nodes, active_nodes * valid)
+
+        return dataclasses.replace(
+            s, pending=pending, cpu_left=cpu_left, mem_left=mem_left,
+            gpu_left=gpu_left, gpu_milli_left=gml, events_processed=events,
+            snap_idx=snap_idx, snap_sums=snap_sums, frag_sum=frag_sum,
+            frag_count=s.frag_count + failp[:, 0].to(i32),
+            max_nodes=max_nodes, failed=s.failed | alloc_fail[:, 0],
+            steps=s.steps + act[:, 0].to(i32))
+
+    return step
+
+
+def run_lanes(step, s: FlatState, max_steps: int) -> FlatState:
+    """Drive self-masking lanes until none is active (the host checks every
+    ``SYNC_EVERY`` steps; the extra steps are no-ops)."""
+    while bool(lane_active(s, max_steps).any()):
+        for _ in range(SYNC_EVERY):
+            s = step(s)
+    return s
+
+
+def decode_assignment(aux, aux_gpus, g: int, packed: bool):
+    """(assigned_node i32, assigned_gpus i64) from the aux encoding, slot
+    order. Placed pods keep aux >= 0 after their DELETE fires."""
+    placed = aux >= 0
+    if packed:
+        an = torch.where(placed, aux >> g, -1)
+        ag = torch.where(placed, aux & ((1 << g) - 1), 0).to(torch.int64)
+    else:
+        an = torch.where(placed, aux, -1)
+        ag = torch.where(placed, aux_gpus, 0)
+    return an.to(torch.int32), ag
+
+
+def finalize(workload: Workload, cfg: SimConfig, s: FlatState) -> SimResult:
+    c, p = workload.cluster, workload.pods
+    inv = torch.argsort(rank_perm(p.pod_mask, p.tie_rank))
+    an, ag = decode_assignment(s.aux, s.aux_gpus, c.g_padded,
+                               _packable(c.n_padded, c.g_padded))
+    view = FinalView(
+        assigned_node=an[:, inv], assigned_gpus=ag[:, inv],
+        pod_ctime=s.pod_ctime[:, inv], cpu_left=s.cpu_left,
+        mem_left=s.mem_left, gpu_left=s.gpu_left,
+        gpu_milli_left=s.gpu_milli_left,
+        events_processed=s.events_processed, snap_idx=s.snap_idx,
+        snap_sums=s.snap_sums, frag_sum=s.frag_sum,
+        frag_count=s.frag_count, max_nodes=s.max_nodes, failed=s.failed)
+    return finalize_fields(workload, cfg, pending=s.pending > 0, s=view)
+
+
+def broadcast_state(state0: FlatState, lanes: int) -> FlatState:
+    """``lanes`` independent copies of a one-lane state."""
+    return FlatState(**{
+        f.name: (None if getattr(state0, f.name) is None else
+                 getattr(state0, f.name).expand(
+                     (lanes,) + tuple(getattr(state0, f.name).shape[1:]))
+                 .clone())
+        for f in dataclasses.fields(state0)})
+
+
+def make_population_run_fn(workload: Workload, param_policy,
+                           cfg: SimConfig = SimConfig()):
+    """``run(params[P, ...], state0) -> SimResult`` over P lanes: one host
+    loop whose body is the lane-batched self-masking step. ``state0`` is a
+    one-lane ``initial_state``; ``param_policy(params, pod, nodes)``."""
+    ktable, max_steps = loop_tables(workload, cfg)
+
+    def run(params, state0: FlatState) -> SimResult:
+        step = build_step(
+            workload, lambda pod, nodes: param_policy(params, pod, nodes),
+            cfg, ktable, max_steps)
+        final = run_lanes(step, broadcast_state(state0, params.shape[0]),
+                          max_steps)
+        return finalize(workload, cfg, final)
+
+    return run
+
+
+def simulate(workload: Workload, policy: PolicyFn,
+             cfg: SimConfig = SimConfig()) -> SimResult:
+    """One policy, one lane: the result of lane 0 (no lane axis)."""
+    ktable, max_steps = loop_tables(workload, cfg)
+    step = build_step(workload, policy, cfg, ktable, max_steps)
+    final = run_lanes(step, initial_state(workload, cfg), max_steps)
+    return finalize(workload, cfg, final).lane(0)

@@ -1,0 +1,120 @@
+"""Simulation-facing views and state, batched over lanes.
+
+Port of fks_tpu.sim.types. Where fks_tpu vmaps a per-lane function, the
+port writes the lane axis out: every per-lane quantity carries a leading
+``[L]`` dimension.
+
+- ``PodView`` fields are ``[L, 1]`` columns, so they broadcast against
+  ``[L, N]`` node arrays (``[..., None]`` adds the GPU axis).
+- ``NodeView`` "left" fields are per lane (``[L, N]``, ``[L, N, G]``);
+  capacity fields are shared by all lanes (``[N]``, ``[N, G]``).
+
+A policy scores one pod against every node of every lane:
+``policy(PodView, NodeView) -> i32[L, N]``; 0 means "cannot/refuse".
+``SimState`` and ``TraceBuffer`` (exact heap engine, decision trace) wait
+for later slices.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, NamedTuple, Optional
+
+import torch
+
+
+class PodView(NamedTuple):
+    """The pod being scheduled in each lane, as ``[L, 1]`` columns."""
+
+    cpu_milli: torch.Tensor
+    memory_mib: torch.Tensor
+    num_gpu: torch.Tensor
+    gpu_milli: torch.Tensor
+    creation_time: torch.Tensor  # as mutated by retries
+    duration_time: torch.Tensor
+
+
+class NodeView(NamedTuple):
+    """Per-node state: ``*_left`` per lane, totals and masks shared."""
+
+    cpu_milli_left: torch.Tensor  # i32[L, N]
+    cpu_milli_total: torch.Tensor  # i32[N]
+    memory_mib_left: torch.Tensor  # i32[L, N]
+    memory_mib_total: torch.Tensor  # i32[N]
+    gpu_left: torch.Tensor  # i32[L, N] (starts at the declared count)
+    num_gpus: torch.Tensor  # i32[N]
+    gpu_milli_left: torch.Tensor  # i32[L, N, G]
+    gpu_milli_total: torch.Tensor  # i32[N, G]
+    gpu_mem_total: torch.Tensor  # i32[N, G]
+    gpu_mask: torch.Tensor  # bool[N, G]
+    node_mask: torch.Tensor  # bool[N]
+
+
+PolicyFn = Callable[[PodView, NodeView], torch.Tensor]  # -> i32[L, N]
+
+
+@dataclasses.dataclass
+class FlatState:
+    """The flat engine's carry for L lanes: a slot-per-pod event queue in
+    tie-rank order plus cluster and evaluator state (fks_tpu.sim.types.
+    FlatState with the lane axis written out). Per-pod arrays are in SLOT
+    order; finalize un-permutes them. The flat step updates ``ev_time``,
+    ``aux``, ``aux_gpus``, ``pod_ctime`` and ``wait_hist`` in place."""
+
+    ev_time: torch.Tensor  # i32[L, Q]; INF = no pending event
+    # -1 fresh CREATE pending, -2 waiting, >= 0 placed: (node << G) | bits
+    # when packable, else the node index with bits in aux_gpus
+    aux: torch.Tensor  # i32[L, Q]
+    aux_gpus: Optional[torch.Tensor]  # i64[L, Q] bitmask, None when packed
+    pending: torch.Tensor  # i32[L] live-slot count
+    cpu_left: torch.Tensor  # i32[L, N]
+    mem_left: torch.Tensor  # i32[L, N]
+    gpu_left: torch.Tensor  # i32[L, N]
+    gpu_milli_left: torch.Tensor  # i32[L, N, G]
+    pod_ctime: torch.Tensor  # i32[L, Q] creation time, retry-mutated
+    wait_hist: torch.Tensor  # i32[L, H] gpu_milli histogram of waiting pods
+    events_processed: torch.Tensor  # i32[L]
+    snap_idx: torch.Tensor  # i32[L]
+    snap_sums: torch.Tensor  # f[L, 4]
+    frag_sum: torch.Tensor  # f[L]
+    frag_count: torch.Tensor  # i32[L]
+    max_nodes: torch.Tensor  # i32[L]
+    failed: torch.Tensor  # bool[L]
+    steps: torch.Tensor  # i32[L]
+
+    @property
+    def lanes(self) -> int:
+        return int(self.ev_time.shape[0])
+
+
+@dataclasses.dataclass
+class SimResult:
+    """Final observables of L lanes (fks_tpu.sim.types.SimResult with a
+    leading lane axis on every field)."""
+
+    policy_score: torch.Tensor
+    avg_cpu_utilization: torch.Tensor
+    avg_memory_utilization: torch.Tensor
+    avg_gpu_count_utilization: torch.Tensor
+    avg_gpu_memory_utilization: torch.Tensor
+    gpu_fragmentation_score: torch.Tensor
+    num_snapshots: torch.Tensor
+    num_fragmentation_events: torch.Tensor
+    events_processed: torch.Tensor
+    scheduled_pods: torch.Tensor
+    max_nodes: torch.Tensor
+    assigned_node: torch.Tensor  # i32[L, P]
+    assigned_gpus: torch.Tensor  # i64[L, P] bitmask
+    pod_ctime: torch.Tensor  # i32[L, P]
+    cpu_left: torch.Tensor  # i32[L, N]
+    mem_left: torch.Tensor
+    gpu_left: torch.Tensor
+    gpu_milli_left: torch.Tensor  # i32[L, N, G]
+    failed: torch.Tensor  # bool[L]
+    truncated: torch.Tensor  # bool[L]
+    invariant_violations: torch.Tensor  # i32[L] (the audit is not ported)
+    numeric_flags: torch.Tensor  # i32[L] (the watchdog is not ported)
+
+    def lane(self, i: int) -> "SimResult":
+        """The result of lane ``i`` alone (leading axis dropped)."""
+        return SimResult(**{f.name: getattr(self, f.name)[i]
+                            for f in dataclasses.fields(self)})

@@ -1,0 +1,73 @@
+"""The port stands alone: no module of fks_tpu_torch, and not
+chip_smoke.py, imports JAX or the fks_tpu package; chip_smoke.py refuses
+to run without the card or outside a checkout."""
+import ast
+import pathlib
+import shutil
+import subprocess
+import sys
+
+import jax  # noqa: F401  (the scan itself needs neither framework)
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+FORBIDDEN = {"jax", "jaxlib", "fks_tpu"}
+
+
+def imported_roots(path: pathlib.Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0], node.lineno
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0], node.lineno
+        elif (isinstance(node, ast.Call) and getattr(node.func, "attr", "")
+              == "import_module" and node.args
+              and isinstance(node.args[0], ast.Constant)):
+            yield str(node.args[0].value).split(".")[0], node.lineno
+
+
+def port_files():
+    files = sorted((ROOT / "fks_tpu_torch").rglob("*.py"))
+    assert len(files) > 15
+    return files + [ROOT / "chip_smoke.py"]
+
+
+def test_port_never_imports_jax_or_fks_tpu():
+    bad = [f"{p.relative_to(ROOT)}:{line} imports {mod}"
+           for p in port_files() for mod, line in imported_roots(p)
+           if mod in FORBIDDEN]
+    assert not bad, bad
+
+
+def test_scan_sees_forbidden_imports(tmp_path):
+    probe = tmp_path / "probe.py"
+    probe.write_text("import jax.numpy as jnp\nfrom fks_tpu.sim import flat\n"
+                     "import fks_tpu_torch\n")
+    assert [m for m, _ in imported_roots(probe)] == [
+        "jax", "fks_tpu", "fks_tpu_torch"]
+
+
+@pytest.fixture
+def no_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present; this checks the card-less path")
+
+
+def test_chip_smoke_fails_without_card(no_card):
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
+                          capture_output=True, text=True, timeout=120,
+                          cwd=ROOT)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
+
+
+def test_chip_smoke_fails_outside_checkout(tmp_path):
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    proc = subprocess.run([sys.executable, "chip_smoke.py"],
+                          capture_output=True, text=True, timeout=120,
+                          cwd=tmp_path)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
