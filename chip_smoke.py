@@ -9,16 +9,21 @@ Phases (any failure raises and exits non-zero):
 
 1. the card: ``nvidia-smi`` name and power limit, torch's device name;
 2. build ``fks_tpu_torch/csrc/fused_sim.cu`` for sm_90a and print the
-   ``-Xptxas -v`` report (registers, shared memory, spills);
+   ``-Xptxas -v`` report (registers, shared memory, spills); spills fail;
 3. hold the kernel against its plain PyTorch version on the card, on the
    same inputs: integer outputs exact, float outputs within 2e-6
    (rtol and atol), on the roomy and contended workloads of fks_tpu's
-   tests/test_fused.py and on the full default OpenB trace at pop 8;
+   tests/test_fused.py, the tied workload (equal times across queue
+   chunks, retries onto held times), the multigpu50 and cpu250 OpenB
+   traces at pop 8 cut to 2,000 steps (multi-GPU picks, retry storms,
+   chunk counts that are not a multiple of 32) and the full default OpenB
+   trace at pop 8;
 4. the main path: ``make_population_eval(engine="fused")`` on the full
    default trace (16 nodes x 8,152 pods) at pop 256 — the seeds plus
    jitter, with the 0.5365 champion's weights in one lane — timed, its
-   launch count read, and the kernel's raw outputs held against the plain
-   version at the same inputs;
+   launch count read, the lane-step distribution (``acci[:, 1]``) and the
+   kernel time per step of the longest lane reported, and the kernel's raw
+   outputs held against the plain version at the same inputs;
 5. ``ParametricEvolution`` for 3 generations at pop 256 on the fused
    engine: the best score must not decrease;
 6. one ``{"kernels": [...]}`` line, then the last line
@@ -29,6 +34,7 @@ It imports nothing of JAX or of the fks_tpu package.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -113,7 +119,9 @@ def main() -> int:
     from fks_tpu_torch.parallel import make_population_eval
     from fks_tpu_torch.sim import fused
     from fks_tpu_torch.sim.engine import SimConfig
-    from fks_tpu_torch.testing import contended_workload, roomy_workload
+    from fks_tpu_torch.testing import (
+        contended_workload, roomy_workload, tied_workload,
+    )
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
@@ -136,6 +144,8 @@ def main() -> int:
     for line in _ext.ptxas_report("fused_sim").splitlines():
         if "Used" in line or "spill" in line:
             log(f"[build] {line.strip()}")
+            if any(int(n) for n in re.findall(r"(\d+) bytes spill", line)):
+                raise AssertionError(f"the kernel spills registers: {line}")
 
     # ---- 3. kernel vs plain version on the card
     def check(name, wl, cfg, params):
@@ -159,7 +169,19 @@ def main() -> int:
         "contended", contended_workload(),
         SimConfig(track_ctime=False, max_steps=4 * 96),
         parametric.init_population(gen, 8, noise=0.5)))
-    wl = TraceParser().parse_workload().to(dev)
+    max_err = max(max_err, check(
+        "tied", tied_workload(), SimConfig(track_ctime=False),
+        parametric.init_population(gen, 8, noise=0.5)))
+    parser = TraceParser()
+    for pod_file in ("openb_pod_list_multigpu50.csv",
+                     "openb_pod_list_cpu250.csv"):
+        t0 = time.perf_counter()
+        max_err = max(max_err, check(
+            pod_file, parser.parse_workload(pod_file=pod_file).to(dev),
+            SimConfig(track_ctime=False, max_steps=2000),
+            parametric.init_population(gen, 8)))
+        log(f"[check] {pod_file} pop 8 took {time.perf_counter() - t0:.1f} s")
+    wl = parser.parse_workload().to(dev)
     cfg = SimConfig(track_ctime=False)
     t0 = time.perf_counter()
     max_err = max(max_err, check(
@@ -205,15 +227,31 @@ def main() -> int:
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     max_err = max(max_err, compare_raw("main-path pop 256", got, want))
-    lane_steps = int(got[5][:, 1].sum())
+    steps = got[5][:, 1]
+    lane_steps = int(steps.sum())
+    max_lane_steps = int(steps.max())
+    mean_lane_steps = float(steps.double().mean())
+    ns_per_critical_step = kernel_ms * 1e6 / max_lane_steps
     log(f"[main] kernel {kernel_ms:.3f} ms, plain {plain_ms:.1f} ms, "
-        f"{lane_steps} lane-steps, kernel == plain ok")
+        f"{lane_steps} lane-steps (per lane max {max_lane_steps}, mean "
+        f"{mean_lane_steps:.1f}), {ns_per_critical_step:.1f} ns per step "
+        f"of the longest lane, kernel == plain ok")
 
-    # bound: each event sweeps the lane's resident ev + aux (2 Q int32)
-    # through shared memory; device-memory bytes are read/written once
+    # bound: the shared-memory words the kernel moves on every event — its
+    # 32 threads read 3 x run chunk minima (run = chunks per thread) and
+    # write the slot's ev and aux and the chunk's two minima — and on every
+    # CREATE the five words per node of the fit test; GPU rows of GPU pods,
+    # the float scores of feasible nodes, histogram and bookkeeping words
+    # are left out, so this is a floor. CREATEs are placements (aux >= 0)
+    # plus failed placements (frag_count) plus aborted allocations.
+    # Device-memory bytes are read/written once.
+    run = -(-(plan.q // 32) // 32)
+    creates = int((got[0] >= 0).sum() + got[5][:, 4].sum()
+                  + got[5][:, 6].sum())
+    smem_words = lane_steps * (3 * run + 4) + creates * 5 * plan.n
     sm_bytes_per_s = (props.multi_processor_count
                       * SMEM_BYTES_PER_CLOCK_PER_SM * max_clock_mhz * 1e6)
-    smem_bound_ms = lane_steps * 2 * plan.q * 4 / sm_bytes_per_s * 1e3
+    smem_bound_ms = smem_words * 4 / sm_bytes_per_s * 1e3
     io_bytes = (params.numel() * 4 + plan.ev0.numel() * 4
                 + plan.feat.numel() * 4 + sum(o.numel() * 4 for o in got))
     hbm_bound_ms = io_bytes / HBM_BYTES_PER_S * 1e3
@@ -243,10 +281,19 @@ def main() -> int:
         "launches": launches, "max_abs_err": max_err, "ms": kernel_ms,
         "plain_ms": plain_ms, "bound_ms": max(smem_bound_ms, hbm_bound_ms),
         "bound_by": "bytes", "library_ms": None,
-        "bound_note": "shared-memory sweep: lane-steps x 2Q x 4 B over "
-                      "SMs x 128 B/clock x max SM clock",
+        "bound_note": "floor of shared-memory bytes: per lane-step "
+                      "(3 x run + 4) words (chunk minima read, slot and "
+                      "chunk minima written), per CREATE 5 x N node words, "
+                      "over SMs x 128 B/clock x max SM clock; the kernel is "
+                      "latency-bound on its longest lane "
+                      "(ns_per_critical_step)",
         "smem_bound_ms": smem_bound_ms, "hbm_bound_ms": hbm_bound_ms,
-        "lane_steps": lane_steps, "pop": POP, "check": "ok",
+        "smem_bytes_per_lane_step": 4 * (3 * run + 4),
+        "creates": creates, "lane_steps": lane_steps,
+        "max_lane_steps": max_lane_steps,
+        "mean_lane_steps": mean_lane_steps,
+        "ns_per_critical_step": ns_per_critical_step,
+        "pop": POP, "check": "ok",
         "card": card,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,7 @@
 
 Port of fks_tpu.parallel.population. The population is ``params[P, 16]``;
 the flat engine runs it as P lanes of one batched step, the fused engine
-as one kernel launch with one thread block per candidate. The exact heap
+as one kernel launch with one warp per candidate. The exact heap
 engine waits for a later slice of the port.
 """
 from __future__ import annotations

@@ -3,8 +3,8 @@
 Port of fks_tpu.sim.fused. fks_tpu's Pallas kernel (fused.py:179-442,
 ``pl.pallas_call`` at fused.py:471) runs the flat engine's whole event loop
 for a chunk of parametric candidates with the queue resident in TPU VMEM;
-here ``csrc/fused_sim.cu`` does the same on Hopper with one thread block
-per candidate and the queue resident in shared memory.
+here ``csrc/fused_sim.cu`` does the same on Hopper with one warp per
+candidate and the queue resident in shared memory.
 
 Three parts:
 
@@ -22,7 +22,7 @@ utilization "used" is an integer subtraction before the float convert
 (flat.py:448-453), and ``max_nodes`` counts ``gpu_left < num_gpus``
 (flat.py:460-462). TPU workarounds that do not carry over: the one-hot
 MXU gather of the pod row and its ``< 2**24`` check (the kernel indexes
-the row directly) and lane chunking (grid = P blocks).
+the row directly) and lane chunking (grid = P one-warp blocks).
 """
 from __future__ import annotations
 
@@ -43,6 +43,8 @@ from fks_tpu_torch.sim.types import SimResult
 
 #: dynamic shared memory one block may use on sm_90 (227 KB)
 MAX_SMEM_BYTES = 232_448
+#: waiting-histogram buckets the kernel's register bitmap covers
+MAX_HIST = 4096
 
 
 def _round_up(x: int, m: int) -> int:
@@ -50,10 +52,14 @@ def _round_up(x: int, m: int) -> int:
 
 
 def smem_bytes(q: int, n: int, g: int, hist: int) -> int:
-    """Shared memory one lane of the kernel holds: a 512-byte header plus
-    ev and aux [Q], hist [H], eight [N] node rows and two [N, G] grids of
-    int32 (csrc/fused_sim.cu ``Layout``)."""
-    return 512 + 4 * (2 * q + hist + 8 * n + 2 * n * g)
+    """Shared memory one lane of the kernel holds, all int32
+    (csrc/fused_sim.cu ``Layout``): ev and aux [Q]; the chunk minima cmin
+    and dmin, 32 x run each, where each of the warp's 32 threads owns
+    ``run`` = ceil(Q / 32 / 32) chunks of 32 slots; eight words per node;
+    three [N, gs] GPU grids, gs = G rounded up to 8, plus 1; hist [H]."""
+    run = -(-(q // 32) // 32)
+    gs = _round_up(g, 8) + 1
+    return 4 * (2 * q + 2 * 32 * run + 8 * n + 3 * n * gs + hist)
 
 
 @dataclasses.dataclass
@@ -114,6 +120,9 @@ def _build_plan(workload: Workload, cfg: SimConfig,
     dev = workload.device if device is None else torch.device(device)
     q = _round_up(pp, 128)
     hist = flat.hist_size(workload, cfg)
+    if hist > MAX_HIST:
+        raise ValueError(f"fused kernel keeps at most {MAX_HIST} waiting-"
+                         f"histogram buckets, not {hist}; use engine='flat'")
 
     cpu = lambda x: x.detach().cpu().numpy()  # noqa: E731
     pm = cpu(p.pod_mask)
@@ -135,6 +144,9 @@ def _build_plan(workload: Workload, cfg: SimConfig,
                     ).astype(np.int32)
     totals = (int(nrow[0].sum()), int(nrow[1].sum()), int(nrow[3].sum()),
               int(gmt.sum()))
+    if totals[3] >= 2**31 or int(gmt.max(initial=0)) >= 2**26:
+        raise ValueError("fused kernel needs total GPU milli < 2**31 and "
+                         "per-GPU milli < 2**26; use engine='flat'")
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
     return _Plan(
         q=q, n=n, g=g, hist=hist, klen=int(ktable.shape[0]),

@@ -101,6 +101,40 @@ def contended_workload():
                          pad_pods_to=128)
 
 
+def tied_workload_specs():
+    """Node and pod specs of ``tied_workload`` (seed 5) and its padding, for
+    building the same workload with either package's ``make_workload``."""
+    rng = np.random.default_rng(5)
+    nodes = [{"node_id": f"n{i}", "cpu_milli": 32000, "memory_mib": 64000,
+              "gpus": [1000] * 4, "gpu_memory_mib": 8000} for i in range(4)]
+    pods = []
+    for i in range(1000):
+        ngpu = int(rng.integers(0, 3))
+        pods.append({
+            "pod_id": f"pod-{int(rng.integers(0, 10**6)):06d}-{i:04d}",
+            "cpu_milli": int(rng.integers(500, 2000)),
+            "memory_mib": int(rng.integers(250, 6000)),
+            "num_gpu": ngpu,
+            "gpu_milli": int(rng.integers(100, 1000)) if ngpu else 0,
+            "creation_time": int(rng.choice((0, 100, 200, 300, 400))),
+            # t + duration ends one before a creation time, so a retry at
+            # next DELETE + 1 lands on a time that other slots hold
+            "duration_time": int(rng.choice((99, 199, 299)))})
+    return nodes, pods, dict(pad_nodes_to=4, pad_gpus_to=4, pad_pods_to=1024)
+
+
+def tied_workload():
+    """4 small 4-GPU nodes x 1,000 pods (Q = 1,024 slots, 32 chunks of the
+    fused kernel's queue): creation times from five values, so equal-time
+    ties span chunk boundaries, and durations that put retries on times
+    other slots hold. Fragmentation events and retries occur, and the
+    retry storm runs into the step budget (truncation)."""
+    from fks_tpu_torch.data.build import make_workload
+
+    nodes, pods, pad = tied_workload_specs()
+    return make_workload(nodes, pods, **pad)
+
+
 def result_fields(result) -> dict:
     """The compared fields of any result object (a port ``SimResult`` or
     fks_tpu's) as numpy arrays."""

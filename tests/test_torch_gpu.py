@@ -13,7 +13,9 @@ import torch
 from fks_tpu_torch.models import parametric
 from fks_tpu_torch.sim import fused
 from fks_tpu_torch.sim.engine import SimConfig
-from fks_tpu_torch.testing import contended_workload, roomy_workload
+from fks_tpu_torch.testing import (
+    contended_workload, roomy_workload, tied_workload,
+)
 
 pytestmark = pytest.mark.gpu
 
@@ -34,10 +36,12 @@ def assert_raw_equal(got, want):
             assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("case", ["roomy", "contended"])
+@pytest.mark.parametrize("case", ["roomy", "contended", "tied"])
 def test_kernel_matches_plain_version(cuda, case):
     if case == "roomy":
         wl, cfg, noise = roomy_workload(), SimConfig(track_ctime=False), 0.2
+    elif case == "tied":
+        wl, cfg, noise = tied_workload(), SimConfig(track_ctime=False), 0.5
     else:
         wl = contended_workload()
         cfg, noise = SimConfig(track_ctime=False, max_steps=4 * 96), 0.5
