@@ -26,7 +26,16 @@ Phases (any failure raises and exits non-zero):
    outputs held against the plain version at the same inputs;
 5. ``ParametricEvolution`` for 3 generations at pop 256 on the fused
    engine: the best score must not decrease;
-6. one ``{"kernels": [...]}`` line, then the last line
+6. the exact heap engine (plain PyTorch ops, no hand kernel; ``SYNC_EVERY``
+   steps per captured CUDA graph): ``golden_micro`` through
+   ``micro_best_fit``; the full default trace through ``best_fit`` and
+   ``funsearch_4901`` in float64, held to ``golden_default.json``
+   (integers exact, floats within 1e-9), the best_fit run driven step by
+   step under ``torch.cuda.set_sync_debug_mode("error")`` for its eager
+   steps and graph replays; ``make_population_eval(engine="exact")`` at
+   pop 256 on phase 4's population, then lanes 0 and 4 alone, which must
+   equal their batched results exactly;
+7. one ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the fks_tpu package.
@@ -100,6 +109,114 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def exact_phase(dev, wl, params, card) -> None:
+    """Phase 6 (module docstring): the exact engine's golden parity, its
+    sync-free step, and the pop-256 population with lanes run alone."""
+    import torch
+
+    from fks_tpu_torch.models import zoo
+    from fks_tpu_torch.parallel import make_population_eval
+    from fks_tpu_torch.sim import engine
+    from fks_tpu_torch.sim.engine import SYNC_EVERY, SimConfig
+    from fks_tpu_torch.testing import (
+        assert_golden_micro, assert_golden_parity, assert_result_matches,
+        golden_micro_workload, result_fields,
+    )
+
+    fixtures = ROOT / "tests" / "fixtures"
+    golden = json.loads((fixtures / "golden_default.json").read_text())
+    f64 = SimConfig(score_dtype=torch.float64)
+    t_phase = time.perf_counter()
+
+    micro = golden_micro_workload()
+    res = engine.simulate(micro, zoo.micro_best_fit(torch.float64), f64,
+                          device=dev)
+    assert_golden_micro(
+        res, json.loads((fixtures / "golden_micro.json").read_text()), micro)
+    log("[exact] golden_micro (micro_best_fit): placements, GPU picks and "
+        "final state equal the fixture")
+
+    # best_fit step by step: eager steps and graph replays under the sync
+    # debug mode "error" (any host sync raises), the capture in between (a
+    # sync while capturing fails it); then the ordinary loop to the end
+    ref = golden["policies"]["best_fit"]
+    ktable, max_steps = engine.loop_tables(wl, f64)
+    step = engine.build_step(wl, zoo.best_fit(torch.float64), f64, ktable,
+                             max_steps)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = engine.initial_state(wl, f64)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(2 * SYNC_EVERY):
+            state = step(state)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    chunk = engine.GraphedChunk(step, state, max_steps)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(4):
+            chunk.replay()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    final = chunk.run()
+    res = engine.finalize(wl, f64, final).lane(0)
+    steps = int(final.steps[0])
+    wall = time.perf_counter() - t0
+    assert_golden_parity(res, ref, wl)
+    log(f"[exact] default trace best_fit float64: {wall:.3f} s, {steps} "
+        f"steps, {wall / steps * 1e6:.1f} us/step ({chunk.replays} graph "
+        f"replays of {SYNC_EVERY} steps, {2 * SYNC_EVERY} eager steps and "
+        f"replays under sync debug mode 'error'), score "
+        f"{float(res.policy_score):.12f}, events {int(res.events_processed)}"
+        f", golden {ref['policy_score']:.12f}: parity ok")
+
+    ref = golden["policies"]["funsearch_4901"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = engine.simulate(wl, zoo.funsearch_4901(torch.float64), f64,
+                          device=dev)
+    events = int(res.events_processed)
+    wall = time.perf_counter() - t0
+    assert_golden_parity(res, ref, wl)
+    log(f"[exact] default trace funsearch_4901 float64: {wall:.3f} s, "
+        f"{events} steps, {wall / events * 1e6:.1f} us/step, score "
+        f"{float(res.policy_score):.12f}, golden "
+        f"{ref['policy_score']:.12f}: parity ok")
+
+    # the population: phase 4's params (seeds + jitter, champion lane 4)
+    cfg = SimConfig()
+    pop = params.shape[0]
+    evaluate = make_population_eval(wl, cfg=cfg, engine="exact", device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batched = evaluate(params)  # the capture included (well under 1 s)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    graphed = evaluate.run.graphs[pop]
+    lane_steps = graphed.state.steps.double()
+    scores = batched.policy_score
+    if scores.shape != (pop,) or not bool(torch.isfinite(scores).all()) \
+            or not bool(((scores >= 0) & (scores <= 1)).all()):
+        raise AssertionError(f"bad exact-engine scores: {scores}")
+    longest = float(lane_steps.max())
+    log(f"[exact] pop {pop} default trace: {wall:.3f} s/eval with the "
+        f"graph capture, {pop / wall:.2f} evals/s, steps per lane max "
+        f"{int(longest)} mean {float(lane_steps.mean()):.1f}, "
+        f"{wall / longest * 1e6:.1f} us per step of the longest lane, best "
+        f"{float(scores.max()):.6f}, champion lane {float(scores[4]):.6f}, "
+        f"card {card}")
+    want = result_fields(batched)
+    for lane in (0, 4):
+        alone = make_population_eval(wl, cfg=cfg, engine="exact",
+                                     device=dev)(params[lane:lane + 1])
+        assert_result_matches(alone, {k: v[lane:lane + 1]
+                                      for k, v in want.items()},
+                              rtol=0, atol=0)
+    log(f"[exact] lanes 0 and 4 alone equal their batched results exactly; "
+        f"phase {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     if not (ROOT / "fks_tpu_torch" / "csrc" / "fused_sim.cu").is_file():
         raise SystemExit("chip_smoke.py must run from a checkout that holds "
@@ -122,6 +239,9 @@ def main() -> int:
     from fks_tpu_torch.testing import (
         contended_workload, roomy_workload, tied_workload,
     )
+    for name in ("golden_default.json", "golden_micro.json"):
+        if not (ROOT / "tests" / "fixtures" / name).is_file():
+            raise SystemExit(f"chip_smoke.py needs tests/fixtures/{name}")
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
@@ -271,7 +391,10 @@ def main() -> int:
         f"{time.perf_counter() - t0:.2f} s, launches "
         f"{fused.fused_sim.launches}")
 
-    # ---- 6. summary
+    # ---- 6. the exact heap engine
+    exact_phase(dev, wl, params, card)
+
+    # ---- 7. summary
     log(f"[card] {card}")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{

@@ -13,8 +13,8 @@ import fks_tpu). Same schema and semantics:
 - ``tie_rank`` = rank of the pod id in lexicographic order.
 
 Parsing is host work; the result lives on the CPU until the caller moves
-it (``Workload.to(device)``). ``parse_node_yaml`` (the 1,213-node park of
-the large-cluster tier) waits for the synthetic-workload slice.
+it (``Workload.to(device)``). ``parse_node_yaml`` reads the full OpenB
+node park (1,213 nodes) from the vendored k8s node manifests.
 """
 from __future__ import annotations
 
@@ -60,6 +60,85 @@ def _pad_to(n: int, multiple: int) -> int:
 
 def _t(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _parse_cpu_milli(v: str) -> int:
+    """k8s CPU quantity -> milli-cores: ``64000m`` or bare cores."""
+    v = v.strip().strip("'\"")
+    if v.endswith("m"):
+        return int(v[:-1])
+    return int(float(v) * 1000)
+
+
+def _parse_memory_mib(v: str) -> int:
+    """k8s memory quantity -> MiB: ``262144Mi`` plus the Ki/Gi/Ti scales."""
+    v = v.strip().strip("'\"")
+    for suffix, scale in (("Mi", 1.0), ("Gi", 1024.0), ("Ti", 1024.0 * 1024),
+                          ("Ki", 1.0 / 1024)):
+        if v.endswith(suffix):
+            return int(float(v[: -len(suffix)]) * scale)
+    return int(v)
+
+
+#: node-YAML keys lifted (allocatable block first -> first-seen wins)
+_NODE_YAML_KEYS = {
+    "alibabacloud.com/gpu-card-model": "model",
+    "kubernetes.io/hostname": "hostname",
+    "alibabacloud.com/gpu-count": "gpu_count",
+    "alibabacloud.com/gpu-milli": "gpu_milli",
+    "cpu": "cpu",
+    "memory": "memory",
+}
+
+
+def parse_node_yaml(path: str | Path | None = None,
+                    traces_dir: str | Path | None = None) -> List[dict]:
+    """The full OpenB node park (1,213 nodes) from the k8s node manifests
+    at ``benchmarks/traces/node_yaml/`` (gzipped or plain), as node dicts
+    in ``data.build.make_cluster``'s schema, in manifest order. Per-GPU
+    milli is ``gpu-milli / gpu-count``; GPU memory comes from
+    ``gpu_mem_mapping.json`` by card model (0 when unmapped). The
+    manifests are flat two-level YAML, read by line scanning."""
+    base = (Path(traces_dir) if traces_dir is not None
+            else default_traces_dir())
+    if path is None:
+        path = base / "node_yaml" / "openb_node_list_gpu_node.yaml"
+    with open(base / "gpu_mem_mapping.json") as f:
+        gpu_mem = json.load(f)
+
+    nodes: List[dict] = []
+
+    def flush(rec: Dict[str, str]) -> None:
+        if "cpu" not in rec:  # blank separator documents
+            return
+        count = int(rec.get("gpu_count", "0").strip("'\""))
+        milli = int(rec.get("gpu_milli", "0").strip("'\""))
+        per_gpu = milli // count if count else 0
+        nodes.append({
+            "node_id": rec.get("hostname", f"openb-node-{len(nodes):04d}"),
+            "cpu_milli": _parse_cpu_milli(rec["cpu"]),
+            "memory_mib": _parse_memory_mib(rec["memory"]),
+            "gpus": [per_gpu] * count,
+            "gpu_memory_mib": int(gpu_mem.get(rec.get("model", ""), 0)),
+        })
+
+    rec: Dict[str, str] = {}
+    with _open_text(Path(path)) as f:
+        for line in f:
+            stripped = line.strip()
+            if stripped.startswith("---"):
+                flush(rec)
+                rec = {}
+                continue
+            key, sep, value = stripped.partition(":")
+            if not sep:
+                continue
+            name = _NODE_YAML_KEYS.get(key.strip())
+            # first-seen wins: the allocatable block precedes capacity
+            if name is not None and value.strip() and name not in rec:
+                rec[name] = value.strip()
+    flush(rec)
+    return nodes
 
 
 class TraceParser:

@@ -68,7 +68,7 @@ class ParametricEvolution:
 
     def __init__(self, workload: Workload, pop_size: int = 64,
                  elite_k: int = 4, noise: float = 0.05,
-                 cfg: SimConfig = SimConfig(), engine: str = "flat",
+                 cfg: SimConfig = SimConfig(), engine: str = "exact",
                  seed: int = 0, init_noise: float = 0.1, device=None):
         self.device = resolve_device(device)
         self.eval = make_population_eval(workload, cfg=cfg, engine=engine,

@@ -103,7 +103,10 @@ def _basis(pod: PodView, nodes: NodeView, dtype):
     den = torch.stack([nodes.cpu_milli_total.clamp(min=1),
                        nodes.memory_mib_total.clamp(min=1), ngpus,
                        milli_tot], dim=-1).to(d)
-    q = num[..., :8] / den[:, (0, 1, 2, 0, 1, 2, 3, 2)]  # [L, N, 8]
+    # denominators cpu, mem, gpus, cpu, mem, gpus, milli, gpus (slices, not
+    # an index list: a host-made index cannot enter a captured CUDA graph)
+    q = num[..., :8] / torch.cat([den[:, 0:3], den[:, 0:3], den[:, 3:4],
+                                  den[:, 2:3]], dim=-1)  # [L, N, 8]
     # x / 1000.0 -> x * float32(1/1000), as XLA compiles it
     milli = num[..., 8:] * (_INV1000 if d == torch.float32 else 1 / 1000)
     rem_cpu, rem_mem, rem_gpu = q[..., 0], q[..., 1], q[..., 2]

@@ -1,9 +1,9 @@
 """Population fitness: every candidate of a parametric population at once.
 
 Port of fks_tpu.parallel.population. The population is ``params[P, 16]``;
-the flat engine runs it as P lanes of one batched step, the fused engine
-as one kernel launch with one warp per candidate. The exact heap
-engine waits for a later slice of the port.
+the exact and flat engines run it as P lanes of one batched step (on the
+card, replayed as a CUDA graph for the exact engine), the fused engine as
+one kernel launch with one warp per candidate.
 """
 from __future__ import annotations
 
@@ -14,7 +14,7 @@ import torch
 from fks_tpu_torch.data.entities import Workload
 from fks_tpu_torch.device import resolve_device
 from fks_tpu_torch.models import parametric
-from fks_tpu_torch.sim import flat
+from fks_tpu_torch.sim import get_engine
 from fks_tpu_torch.sim.engine import SimConfig
 from fks_tpu_torch.sim.types import NodeView, PodView, SimResult
 
@@ -37,26 +37,26 @@ def fused_runner(workload: Workload, param_policy, cfg: SimConfig,
 def make_population_eval(workload: Workload,
                          param_policy: ParamPolicyFn = parametric.score,
                          cfg: SimConfig = SimConfig(),
-                         engine: str = "flat", device=None):
+                         engine: str = "exact", device=None):
     """``eval(params[P, ...]) -> SimResult`` over all candidates on
     ``device`` (default ``cuda``).
 
-    ``engine``: "flat" is the lane-batched PyTorch flat engine; "fused" is
-    the CUDA kernel (flat semantics, ``parametric.score`` only)."""
+    ``engine``: "exact" (the default, as in fks_tpu) is the heap replica,
+    reference parity bit for bit; "flat" is the slot-per-pod engine
+    (its own retry rule); "fused" is the CUDA kernel (flat semantics,
+    ``parametric.score`` only)."""
     dev = resolve_device(device)
     if engine == "fused":
         return fused_runner(workload, param_policy, cfg, device=dev)
-    if engine != "flat":
-        raise ValueError(f"engine={engine!r} is not ported yet (the exact "
-                         "heap engine waits for a later slice); use 'flat' "
-                         "or 'fused'")
+    mod = get_engine(engine)
     wl = workload.to(dev)
-    run = flat.make_population_run_fn(wl, param_policy, cfg)
-    state0 = flat.initial_state(wl, cfg)
+    run = mod.make_population_run_fn(wl, param_policy, cfg)
+    state0 = mod.initial_state(wl, cfg)
 
     def population_eval(params) -> SimResult:
         return run(torch.as_tensor(params).to(dev), state0)
 
+    population_eval.run = run  # the engine's runner (captured graphs)
     return population_eval
 
 

@@ -1,45 +1,99 @@
-"""Pieces shared by every engine: config, loop sizing, node view, fitness.
+"""The exact heap engine, and the pieces every engine shares.
 
-Port of the shared half of fks_tpu.sim.engine — ``SimConfig``,
-``loop_tables``, ``_node_view`` and ``finalize_fields``. The exact heap
-engine itself (``build_step`` / ``simulate`` over ``ops/heap.py``) waits
-for a later slice of the port.
+Port of fks_tpu.sim.engine, the lane axis written out. The shared half —
+``SimConfig``, ``loop_tables``, ``_node_view``, ``_audit`` and
+``finalize_fields`` — serves the flat engine and the fused kernel too.
+
+The exact engine replays the reference's event loop (reference:
+simulator/main.py:28-199, simulator/event_simulator.py) bit for bit. Each
+step pops the next event from the CPython-heapq replica
+(``ops/heap.py``), applies the DELETE refund or the CREATE placement, and
+folds the evaluator into the state, in every lane at once:
+
+- strict-argmax placement with a ``> 0`` gate, ties to the lowest node;
+- best-fit (or first-fit) GPU sub-allocation;
+- a failed CREATE retries at 1 + the time of the first DELETE in raw
+  heap-array order, scanned on the post-pop heap, or is dropped when no
+  DELETE is pending (event_simulator.py:51-58); its creation time is
+  mutated to the retry time;
+- a GPU-allocation shortfall aborts the lane before the event counts
+  (the reference raises, main.py:164-165);
+- snapshot overshoot past 100% and a fragmentation event on every failed
+  creation, as the flat engine.
+
+The step is self-masking (a finished lane is a no-op), makes no host sync
+and has no data-dependent shape, so one loop runs any number of lanes
+until none is active. On the CPU the loop runs eagerly; on CUDA it
+captures ``SYNC_EVERY`` steps in a CUDA graph at the first call and
+replays it, checking ``any(active)`` once per replay.
+
+Not ported yet (a ValueError names ROADMAP queue 1): fault timelines,
+``node_prefilter_k`` and its auto-prefilter helpers, ``decision_trace``
+and ``state_pack``. ``cond_policy`` is accepted and, as in fks_tpu,
+changes no result: the policy runs on every step.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from typing import Any, Callable, Optional
 
 import torch
 
-from fks_tpu_torch.data.entities import ClusterArrays, Workload
+from fks_tpu_torch.data.entities import ClusterArrays, PodArrays, Workload
+from fks_tpu_torch.device import resolve_device
+from fks_tpu_torch.ops.allocator import best_fit_gpus, first_fit_gpus
+from fks_tpu_torch.ops.heap import (
+    COL_KIND, COL_POD, KIND_CREATE, KIND_DELETE,
+    first_deletion_in_array_order, heap_from_events, heap_pop, heap_push,
+)
 from fks_tpu_torch.sim.evaluator import (
     max_snapshot_count, snapshot_trigger_table,
 )
-from fks_tpu_torch.sim.types import NodeView, SimResult
+from fks_tpu_torch.sim.guards import fitness_flags, guard_scores
+from fks_tpu_torch.sim.types import (
+    NodeView, PodView, PolicyFn, SimResult, SimState,
+)
+
+#: steps between the host's checks that some lane is still active (one
+#: captured CUDA graph on the card); the step is self-masking, so the
+#: extra steps of the last round are no-ops
+SYNC_EVERY = 16
+
+_LATER = "a later slice of the port (ROADMAP queue 1)"
 
 
 @dataclasses.dataclass(frozen=True)
 class SimConfig:
     """Static simulation knobs (fks_tpu.sim.engine.SimConfig). The flags
-    the port does not implement yet (``validate_invariants``, ``watchdog``,
-    ``decision_trace``, ``probe_score``, ``node_prefilter_k``,
-    ``state_pack``) are kept so that setting one raises a ValueError that
-    names the slice it waits for, instead of a TypeError."""
+    the port does not implement yet (``decision_trace``,
+    ``node_prefilter_k``, ``state_pack``) are kept so that setting one
+    raises a ValueError that names the slice it waits for, instead of a
+    TypeError."""
 
     max_steps_factor: int = 8  # runaway guard: max events = factor * num_pods
     max_steps: Optional[int] = None  # overrides the factor when set
     snapshot_interval: float = 0.05
     gpu_allocator: str = "best_fit"  # or "first_fit"
     score_dtype: Any = torch.float32  # evaluator accumulation dtype
+    # count invariant-audit failures after every event (reference
+    # main.py:201-272) into SimResult.invariant_violations
     validate_invariants: bool = False
     # wait-histogram width override (must exceed the trace's max gpu_milli)
     wait_hist_size: Optional[int] = None
-    # maintain SimResult.pod_ctime (retry-mutated creation times); a
-    # per-event queue write that throughput paths turn off
+    # skip the policy on non-create events (fks_tpu: a lax.cond). Accepted
+    # for fks_tpu's signature; it changes no result, and the port's steps
+    # always run the policy
+    cond_policy: bool = False
+    # maintain SimResult.pod_ctime (retry-mutated creation times) in the
+    # flat engine, a per-event queue write that throughput paths turn off;
+    # the exact engine always tracks it
     track_ctime: bool = True
+    # numerics watchdog (sim.guards): flag NaN/Inf policy scores per lane
+    # (masking them to "refuse") and audit the final fitness
     watchdog: bool = False
     decision_trace: bool = False
+    # score a truncated prefix: the fitness gate drops "no pending events"
+    # and "every pod assigned" (fks_tpu.funsearch.budget's probe rungs)
     probe_score: bool = False
     node_prefilter_k: int = 0
     state_pack: bool = False
@@ -48,6 +102,23 @@ class SimConfig:
         if self.max_steps is not None:
             return self.max_steps
         return max(64, self.max_steps_factor * num_pods)
+
+
+def check_ported(workload: Workload, cfg: SimConfig) -> None:
+    """Raise ValueError for an option the port does not implement yet (in
+    either engine)."""
+    pending = [
+        (workload.faults is not None, "fault-injected workloads"),
+        (bool(cfg.node_prefilter_k), "node_prefilter_k"),
+        (cfg.decision_trace, "decision_trace"),
+        (cfg.state_pack, "state_pack"),
+    ]
+    for on, name in pending:
+        if on:
+            raise ValueError(f"{name} is not ported yet; it waits for "
+                             f"{_LATER}")
+    if cfg.gpu_allocator not in ("best_fit", "first_fit"):
+        raise ValueError(f"unknown gpu_allocator {cfg.gpu_allocator!r}")
 
 
 def loop_tables(workload: Workload, cfg: SimConfig):
@@ -62,6 +133,19 @@ def loop_tables(workload: Workload, cfg: SimConfig):
     return ktable, max_steps
 
 
+def hist_size(workload: Workload, cfg: SimConfig) -> int:
+    """Waiting-histogram width; must exceed the trace's max gpu_milli."""
+    p = workload.pods
+    max_milli = int(p.gpu_milli.max()) if p.p_padded else 0
+    size = (cfg.wait_hist_size if cfg.wait_hist_size is not None
+            else max(1001, max_milli + 2))
+    if size <= max_milli:
+        raise ValueError(
+            f"wait_hist_size {size} <= trace max gpu_milli; "
+            "fragmentation min_needed would be miscounted")
+    return size
+
+
 def _node_view(c: ClusterArrays, cpu_left, mem_left, gpu_left,
                gpu_milli_left) -> NodeView:
     return NodeView(
@@ -71,6 +155,57 @@ def _node_view(c: ClusterArrays, cpu_left, mem_left, gpu_left,
         gpu_milli_left=gpu_milli_left, gpu_milli_total=c.gpu_milli_total,
         gpu_mem_total=c.gpu_mem_total, gpu_mask=c.gpu_mask,
         node_mask=c.node_mask)
+
+
+def _cluster_totals(c: ClusterArrays) -> torch.Tensor:
+    """i64[4] cluster-wide capacity (cpu, mem, GPU count, GPU milli),
+    computed on the device (no host sync)."""
+    i64 = torch.int64
+    return torch.stack([c.cpu_total.sum(dtype=i64), c.mem_total.sum(dtype=i64),
+                        c.num_gpus.sum(dtype=i64),
+                        c.gpu_milli_total.sum(dtype=i64)])
+
+
+def _audit(c: ClusterArrays, p: PodArrays, active_pods, cpu_left, mem_left,
+           gpu_left, gpu_milli_left, assigned_node, assigned_gpus):
+    """The reference's invariant checks (main.py:201-272) over L lanes:
+    non-negative remnants, remnant <= total, and conservation (used ==
+    total - remaining) per node and per GPU, against ``active_pods``
+    bool[L, P] — the engine's "DELETE still pending" mask. ``p``'s arrays
+    are in the same pod order as ``assigned_*``. Returns i32[L], 1 where
+    an invariant fails."""
+    i64 = torch.int64
+    n, g = c.gpu_mask.shape
+    nm, gm = c.node_mask, c.gpu_mask
+
+    def anyn(x):
+        return x.flatten(1).any(dim=1)
+
+    neg = (anyn(nm & (cpu_left < 0)) | anyn(nm & (mem_left < 0))
+           | anyn(nm & (gpu_left < 0)) | anyn(gm & (gpu_milli_left < 0)))
+    over = (anyn(nm & (cpu_left > c.cpu_total))
+            | anyn(nm & (mem_left > c.mem_total))
+            | anyn(nm & (gpu_left > c.gpu_declared))
+            | anyn(gm & (gpu_milli_left > c.gpu_milli_total)))
+    active = active_pods & (assigned_node >= 0)
+    seg = assigned_node.clamp(0, n - 1).long()
+    lanes = active.shape[0]
+
+    def used_by_node(req):
+        z = torch.zeros((lanes, n), dtype=i64, device=seg.device)
+        return z.scatter_add_(1, seg, torch.where(active, req, 0).to(i64))
+
+    cons = (anyn(nm & (c.cpu_total - cpu_left != used_by_node(p.cpu)))
+            | anyn(nm & (c.mem_total - mem_left != used_by_node(p.mem)))
+            | anyn(nm & (c.gpu_declared - gpu_left
+                         != used_by_node(p.num_gpu))))
+    g_iota = torch.arange(g, device=seg.device)
+    bits = (assigned_gpus[..., None] >> g_iota) & 1  # [L, P, G]
+    contrib = torch.where(active[..., None], bits * p.gpu_milli[:, None], 0)
+    used_milli = torch.zeros((lanes, n, g), dtype=i64, device=seg.device)
+    used_milli.scatter_add_(1, seg[..., None].expand(-1, -1, g), contrib)
+    cons_g = anyn(gm & (c.gpu_milli_total - gpu_milli_left != used_milli))
+    return (neg | over | cons | cons_g).to(torch.int32)
 
 
 @dataclasses.dataclass
@@ -92,6 +227,8 @@ class FinalView:
     frag_count: torch.Tensor
     max_nodes: torch.Tensor
     failed: torch.Tensor
+    violations: torch.Tensor  # i32[L]
+    numeric_flags: torch.Tensor  # i32[L]
 
 
 def finalize_fields(workload: Workload, cfg: SimConfig, *, pending,
@@ -111,12 +248,17 @@ def finalize_fields(workload: Workload, cfg: SimConfig, *, pending,
     truncated = pending & ~s.failed
     overall = avg.sum(dim=-1) / 4
     raw = (overall - frag_mean.clamp(max=0.1)).clamp(0.0, 1.0)
-    gate = (n_snap > 0) & all_assigned & ~s.failed & ~truncated
+    if cfg.probe_score:
+        gate = (n_snap > 0) & ~s.failed
+    else:
+        gate = (n_snap > 0) & all_assigned & ~s.failed & ~truncated
     score = torch.where(gate, raw, torch.zeros((), dtype=raw.dtype,
                                                 device=dev))
     scheduled = ((s.assigned_node >= 0) & pod_mask).sum(
         dim=-1, dtype=torch.int32)
-    zeros = torch.zeros_like(n_snap)
+    numeric_flags = s.numeric_flags
+    if cfg.watchdog:
+        numeric_flags = numeric_flags | fitness_flags(score)
     return SimResult(
         policy_score=score,
         avg_cpu_utilization=avg[:, 0], avg_memory_utilization=avg[:, 1],
@@ -129,6 +271,394 @@ def finalize_fields(workload: Workload, cfg: SimConfig, *, pending,
         assigned_gpus=s.assigned_gpus, pod_ctime=s.pod_ctime,
         cpu_left=s.cpu_left, mem_left=s.mem_left, gpu_left=s.gpu_left,
         gpu_milli_left=s.gpu_milli_left, failed=s.failed,
-        truncated=truncated, invariant_violations=zeros,
-        numeric_flags=zeros.clone(),
+        truncated=truncated, invariant_violations=s.violations,
+        numeric_flags=numeric_flags,
     )
+
+
+# ------------------------------------------------------- state plumbing
+
+def _tensor_leaves(state):
+    """Every tensor of a state dataclass, nested dataclasses included, in
+    field order."""
+    for f in dataclasses.fields(state):
+        v = getattr(state, f.name)
+        if dataclasses.is_dataclass(v):
+            yield from _tensor_leaves(v)
+        elif isinstance(v, torch.Tensor):
+            yield v
+
+
+def _map_tensors(fn, state):
+    kw = {}
+    for f in dataclasses.fields(state):
+        v = getattr(state, f.name)
+        if dataclasses.is_dataclass(v):
+            v = _map_tensors(fn, v)
+        elif isinstance(v, torch.Tensor):
+            v = fn(v)
+        kw[f.name] = v
+    return dataclasses.replace(state, **kw)
+
+
+def broadcast_state(state0, lanes: int):
+    """``lanes`` independent copies of a one-lane state (any engine's)."""
+    return _map_tensors(
+        lambda x: x.expand((lanes,) + tuple(x.shape[1:])).clone(), state0)
+
+
+def copy_state_(dst, src) -> None:
+    """Write every tensor of ``src`` into the same-shaped state ``dst``."""
+    for a, b in zip(_tensor_leaves(dst), _tensor_leaves(src)):
+        if a is not b:
+            a.copy_(b)
+
+
+def run_chunk(step, state) -> None:
+    """``SYNC_EVERY`` steps from ``state``, written back into ``state``'s
+    own tensors — the body ``GraphedChunk`` captures, so repeating it on
+    one state object is what a replay does."""
+    out = state
+    for _ in range(SYNC_EVERY):
+        out = step(out)
+    copy_state_(state, out)
+
+
+class GraphedChunk:
+    """``SYNC_EVERY`` steps of a self-masking step on a fixed state,
+    captured once in a CUDA graph and replayed.
+
+    The state's tensors are the graph's inputs and outputs: a chunk runs
+    the steps, then copies the last step's state into ``state`` (tensors
+    the step updates in place are already there). Construction runs one
+    chunk eagerly on a side stream (the warm-up, which advances ``state``
+    like any chunk), then captures. A capture that fails raises; there is
+    no eager fallback."""
+
+    def __init__(self, step, state, max_steps: int, active_fn=None):
+        # the graph reads the device memory of every tensor the step closes
+        # over (the workload tables, a population's params): holding the
+        # step keeps them alive for as long as the graph can replay
+        self.step = step
+        self.state = state
+        self.max_steps = max_steps
+        self.active_fn = lane_active if active_fn is None else active_fn
+        self.replays = 0
+        dev = next(_tensor_leaves(state)).device
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            run_chunk(step, state)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            run_chunk(step, state)
+
+    def replay(self) -> None:
+        self.graph.replay()
+        self.replays += 1
+
+    def run(self):
+        """Replay until no lane is active (one host check per replay)."""
+        while bool(self.active_fn(self.state, self.max_steps).any()):
+            self.replay()
+        return self.state
+
+
+def run_batched_lanes(step, state, max_steps: int, active_fn=None):
+    """Drive a stack of self-masking lanes until none is active: eagerly on
+    the CPU (a host check every ``SYNC_EVERY`` steps), through a
+    ``GraphedChunk`` on CUDA. ``active_fn`` is the engine's
+    ``lane_active``, the predicate its step masks with."""
+    active_fn = lane_active if active_fn is None else active_fn
+    if next(_tensor_leaves(state)).is_cuda:
+        return GraphedChunk(step, state, max_steps, active_fn).run()
+    while bool(active_fn(state, max_steps).any()):
+        for _ in range(SYNC_EVERY):
+            state = step(state)
+    return state
+
+
+# ------------------------------------------------------- the exact engine
+
+def initial_state(workload: Workload, cfg: SimConfig,
+                  lanes: int = 1) -> SimState:
+    """The t=0 state for ``lanes`` identical lanes on the workload's
+    device. The initial heap layout comes from CPython ``heapq`` on the
+    host, so it is the reference's."""
+    check_ported(workload, cfg)
+    c, p = workload.cluster, workload.pods
+    dev = workload.device
+    i32 = torch.int32
+    pm = p.pod_mask.cpu().numpy()
+    heap = heap_from_events(
+        p.creation_time.cpu().numpy()[pm], p.tie_rank.cpu().numpy()[pm],
+        [KIND_CREATE] * int(pm.sum()), pm.nonzero()[0],
+        capacity=p.p_padded, device=dev)
+    pp = p.p_padded
+    f = cfg.score_dtype
+    pod_state = torch.stack([
+        torch.full((pp,), -1, dtype=i32, device=dev),  # assigned node
+        torch.zeros(pp, dtype=i32, device=dev),  # GPU bitmask
+        p.creation_time.to(i32),  # creation time
+        torch.zeros(pp, dtype=i32, device=dev),  # waiting flag
+    ], dim=-1)[None]
+    zero = torch.zeros(1, dtype=i32, device=dev)
+    state = SimState(
+        heap=heap, cpu_left=c.cpu_total[None].clone(),
+        mem_left=c.mem_total[None].clone(),
+        gpu_left=c.gpu_declared[None].clone(),
+        gpu_milli_left=c.gpu_milli_total[None].clone(),
+        pod_state=pod_state,
+        wait_hist=torch.zeros((1, hist_size(workload, cfg)), dtype=i32,
+                              device=dev),
+        events_processed=zero, snap_idx=zero.clone(),
+        snap_sums=torch.zeros((1, 4), dtype=f, device=dev),
+        frag_sum=torch.zeros(1, dtype=f, device=dev),
+        frag_count=zero.clone(), max_nodes=zero.clone(),
+        failed=torch.zeros(1, dtype=torch.bool, device=dev),
+        steps=zero.clone(), violations=zero.clone(),
+        numeric_flags=zero.clone())
+    return state if lanes == 1 else broadcast_state(state, lanes)
+
+
+def lane_active(s: SimState, max_steps: int) -> torch.Tensor:
+    """bool[L] termination predicate — the loop's condition and the
+    step's self-mask, so the two cannot diverge."""
+    return (s.heap.size > 0) & ~s.failed & (s.steps < max_steps)
+
+
+def build_step(workload: Workload, policy: PolicyFn, cfg: SimConfig,
+               ktable, max_steps: int) -> Callable[[SimState], SimState]:
+    """One event in every lane (module docstring).
+    ``policy(PodView, NodeView) -> [L, N]`` scores all lanes at once; per-
+    lane scalars are ``[L, 1]`` columns. The cluster and pod tables enter
+    only through indexing and broadcasting, so they could carry a leading
+    lane axis (per-lane workloads) without changing the step's shape."""
+    check_ported(workload, cfg)
+    c, p = workload.cluster, workload.pods
+    dev = workload.device
+    i32, i64 = torch.int32, torch.int64
+    g = c.g_padded
+    f = cfg.score_dtype
+    alloc = (best_fit_gpus if cfg.gpu_allocator == "best_fit"
+             else first_fit_gpus)
+    totals = _cluster_totals(c)
+    denom = totals.clamp(min=1).to(f)
+    no_total = totals <= 0
+    gm_total_pos = totals[3] > 0
+    g_iota = torch.arange(g, dtype=i32, device=dev)
+    g_pow = torch.ones((), dtype=i32, device=dev) << g_iota  # bit 31 < 0
+    n_iota = torch.arange(c.n_padded, device=dev)
+    nh = hist_size(workload, cfg)
+    h_iota = torch.arange(nh, dtype=i32, device=dev)
+    kinds = torch.tensor([KIND_CREATE, KIND_DELETE], dtype=i32, device=dev)
+    signs = torch.tensor([0, 1, -1], dtype=i32, device=dev)
+    ktable = torch.as_tensor(ktable, dtype=i32, device=dev)
+    klen = int(ktable.shape[0])
+    feat = torch.stack([p.cpu, p.mem, p.num_gpu, p.gpu_milli, p.duration],
+                       dim=-1).to(i32)  # [P, 5], one row gather per event
+    pp = p.p_padded
+    f_zero = torch.zeros((), dtype=f, device=dev)
+
+    def step(s: SimState) -> SimState:
+        lanes = s.lanes
+        act = lane_active(s, max_steps)
+        heap, (t, rk, kind, pod) = heap_pop(s.heap, pred=act)
+        is_del = (act & (kind == KIND_DELETE))[:, None]
+        create = (act & (kind != KIND_DELETE))[:, None]
+        podl = pod.long()
+        pcpu, pmem, pngpu, pmilli, pdur = feat[podl].split(1, dim=1)
+        pod_idx = podl[:, None, None].expand(lanes, 1, 4)
+        row = s.pod_state.gather(1, pod_idx)[:, 0]  # [L, 4]
+        held_node, bits32, pod_ct, waited = row.split(1, dim=1)
+        gpu_pod = pngpu > 0
+
+        # ---- CREATION: score every node, strict argmax (main.py:101-111).
+        # A lane's event is a DELETE or a CREATE, and a DELETE's refund
+        # touches no CREATE lane, so the policy sees the pre-step cluster
+        nodes = _node_view(c, s.cpu_left, s.mem_left, s.gpu_left,
+                           s.gpu_milli_left)
+        raw = policy(PodView(pcpu, pmem, pngpu, pmilli, pod_ct, pdur), nodes)
+        raw, numeric_flags = guard_scores(raw, create[:, 0], s.numeric_flags,
+                                          enabled=cfg.watchdog)
+        scores = torch.where(c.node_mask, raw, 0)
+        w = scores.argmax(dim=1, keepdim=True)  # first maximal index
+        placed = create & (scores.gather(1, w) > 0)
+        sel, ok = alloc(
+            s.gpu_milli_left.gather(1, w[:, :, None].expand(-1, 1, g))[:, 0],
+            c.gpu_mask[w[:, 0]], pmilli[:, 0], pngpu[:, 0])
+        alloc_fail = placed & gpu_pod & ~ok[:, None]  # reference raises
+        pl = placed & ~alloc_fail
+
+        # ---- one signed update: a DELETE refunds its held node and GPUs
+        # (main.py:74-99), a placement takes the winner's
+        sign = signs[(is_del + 2 * pl).long()]  # +1, -1 or 0 (exclusive)
+        oh = torch.where(n_iota == torch.where(is_del, held_node, w), sign,
+                         0)  # i32[L, N]
+        cpu_left = s.cpu_left + oh * pcpu
+        mem_left = s.mem_left + oh * pmem
+        gpu_left = s.gpu_left + oh * pngpu
+        gbits = torch.where(is_del, (bits32 >> g_iota) & 1, sel.to(i32))
+        gml = s.gpu_milli_left + oh[:, :, None] * (gbits * pmilli)[:, None, :]
+
+        # ---- failed creation: waiting set + fragmentation + retry
+        failp = create & ~placed
+        waiting = ((waited != 0) | failp) & ~pl
+        hist = s.wait_hist
+        hist.scatter_add_(1, pmilli.clamp(0, nh - 1).long(),
+                          torch.where(gpu_pod, waiting.to(i32) - waited, 0))
+        min_needed = torch.where(hist > 0, h_iota, nh).amin(
+            dim=1, keepdim=True)  # first waiting bucket, nh when none
+        frag_free = torch.where(c.gpu_mask & (gml > 0)
+                                & (gml < min_needed[:, :, None]), gml, 0)
+        frag_score = torch.where(
+            (min_needed[:, 0] < nh) & gm_total_pos,
+            frag_free.sum(dim=(1, 2), dtype=i64).to(f) / denom[3], f_zero)
+        frag_sum = s.frag_sum + torch.where(failp[:, 0], frag_score, f_zero)
+        frag_count = s.frag_count + failp[:, 0].to(i32)
+
+        # retry at 1 + the first DELETE in array order of the POST-pop heap
+        # (the reference's scan point: no DELETE was pushed for a failed
+        # placement), or drop; ONE push serves placement and retry
+        found, dt = first_deletion_in_array_order(heap)
+        retry = failp & found[:, None]
+        rt = dt[:, None] + 1
+        heap = heap_push(
+            heap, torch.where(pl, t[:, None] + pdur, rt)[:, 0], rk,
+            kinds[pl[:, 0].long()], pod, pred=(pl | retry)[:, 0])
+
+        # ---- pod bookkeeping: one row scatter (node, bits, ctime, wait)
+        new_row = torch.cat([
+            torch.where(pl, w.to(i32), held_node),
+            torch.where(pl, torch.where(sel, g_pow, 0).sum(
+                dim=1, keepdim=True, dtype=i32), bits32),
+            torch.where(retry, rt, pod_ct), waiting.to(i32)], dim=1)
+        s.pod_state.scatter_(1, pod_idx, new_row[:, None, :])
+
+        # ---- evaluator bookkeeping (main.py:63-72, evaluator.py:55-67);
+        # on alloc_fail the reference raises BEFORE record_event_processed
+        valid = act & ~alloc_fail[:, 0]
+        events = s.events_processed + valid.to(i32)
+        fire = valid & (s.snap_idx < klen) & (
+            events >= ktable[s.snap_idx.clamp(max=klen - 1).long()])
+        used = (totals - torch.stack([
+            cpu_left.sum(dim=1, dtype=i64), mem_left.sum(dim=1, dtype=i64),
+            gpu_left.sum(dim=1, dtype=i64),
+            gml.sum(dim=(1, 2), dtype=i64)], dim=1)).to(f)
+        utils = torch.where(no_total, f_zero, used / denom)
+        snap_sums = s.snap_sums + torch.where(fire[:, None], utils, f_zero)
+        active_nodes = (c.node_mask & (
+            (cpu_left < c.cpu_total) | (mem_left < c.mem_total)
+            | (gpu_left < c.num_gpus))).sum(dim=1, dtype=i32)
+        max_nodes = torch.maximum(s.max_nodes,
+                                  torch.where(valid, active_nodes, 0))
+
+        violations = s.violations
+        if cfg.validate_invariants:
+            hd = heap.data[:, :-1]
+            pend = (hd[..., COL_KIND] == KIND_DELETE) & (
+                torch.arange(hd.shape[1], device=dev) < heap.size[:, None])
+            pend_pod = torch.where(pend, hd[..., COL_POD].long(), pp)
+            active_pods = torch.zeros((lanes, pp + 1), dtype=i32,
+                                      device=dev).scatter_(1, pend_pod, 1)
+            violations = violations + act.to(i32) * _audit(
+                c, p, active_pods[:, :pp] > 0, cpu_left, mem_left, gpu_left,
+                gml, s.assigned_node, s.assigned_gpus)  # post-step rows
+
+        return SimState(
+            heap=heap, cpu_left=cpu_left, mem_left=mem_left,
+            gpu_left=gpu_left, gpu_milli_left=gml, pod_state=s.pod_state,
+            wait_hist=hist, events_processed=events,
+            snap_idx=s.snap_idx + fire.to(i32), snap_sums=snap_sums,
+            frag_sum=frag_sum, frag_count=frag_count, max_nodes=max_nodes,
+            failed=s.failed | alloc_fail[:, 0],
+            steps=s.steps + act.to(i32), violations=violations,
+            numeric_flags=numeric_flags)
+
+    return step
+
+
+def finalize(workload: Workload, cfg: SimConfig, s: SimState) -> SimResult:
+    """Fitness + results (reference evaluator.py:77-127)."""
+    view = FinalView(
+        assigned_node=s.assigned_node, assigned_gpus=s.assigned_gpus,
+        pod_ctime=s.pod_ctime, cpu_left=s.cpu_left, mem_left=s.mem_left,
+        gpu_left=s.gpu_left, gpu_milli_left=s.gpu_milli_left,
+        events_processed=s.events_processed, snap_idx=s.snap_idx,
+        snap_sums=s.snap_sums, frag_sum=s.frag_sum,
+        frag_count=s.frag_count, max_nodes=s.max_nodes, failed=s.failed,
+        violations=s.violations, numeric_flags=s.numeric_flags)
+    return finalize_fields(workload, cfg, pending=s.heap.size > 0, s=view)
+
+
+def make_param_run_fn(workload: Workload, param_policy,
+                      cfg: SimConfig = SimConfig()):
+    """``run(params, state) -> SimResult`` for a parameterized policy
+    ``(params, PodView, NodeView) -> [L, N]``: drives every lane of
+    ``state`` to the end (``run_batched_lanes``) and finalizes."""
+    ktable, max_steps = loop_tables(workload, cfg)
+
+    def run(params, state: SimState) -> SimResult:
+        step = build_step(
+            workload, lambda pod, nodes: param_policy(params, pod, nodes),
+            cfg, ktable, max_steps)
+        return finalize(workload, cfg,
+                        run_batched_lanes(step, state, max_steps))
+
+    return run
+
+
+def make_run_fn(workload: Workload, policy: PolicyFn,
+                cfg: SimConfig = SimConfig()):
+    """``run(state) -> SimResult`` for a plain policy."""
+    run = make_param_run_fn(workload, lambda _p, pod, nodes:
+                            policy(pod, nodes), cfg)
+    return lambda state: run(None, state)
+
+
+def make_population_run_fn(workload: Workload, param_policy,
+                           cfg: SimConfig = SimConfig()):
+    """``run(params[P, ...], state0) -> SimResult`` over P lanes, where
+    ``state0`` is a one-lane ``initial_state``. On CUDA the first call for
+    a population size captures its ``GraphedChunk`` on a static copy of
+    the params and the state; later calls copy theirs in and replay, so
+    the result is copied out of the graph's state."""
+    ktable, max_steps = loop_tables(workload, cfg)
+    graphs = {}
+
+    def build(params):
+        step = build_step(
+            workload, lambda pod, nodes: param_policy(params, pod, nodes),
+            cfg, ktable, max_steps)
+        step.params = params  # the graph's static input (copied into)
+        return step
+
+    def run(params, state0: SimState) -> SimResult:
+        pop = params.shape[0]
+        if not params.is_cuda:
+            final = run_batched_lanes(build(params),
+                                      broadcast_state(state0, pop), max_steps)
+            return finalize(workload, cfg, final)
+        chunk = graphs.get(pop)
+        if chunk is None:
+            chunk = GraphedChunk(build(params.clone()),
+                                 broadcast_state(state0, pop), max_steps)
+            graphs[pop] = chunk
+        else:
+            chunk.step.params.copy_(params)
+            copy_state_(chunk.state, broadcast_state(state0, pop))
+        return _map_tensors(torch.clone,
+                            finalize(workload, cfg, chunk.run()))
+
+    run.graphs = graphs
+    return run
+
+
+def simulate(workload: Workload, policy: PolicyFn,
+             cfg: SimConfig = SimConfig(), device=None) -> SimResult:
+    """The reference's "build the simulator, run the schedule, read the
+    evaluator" in one call, on ``device`` (default ``cuda``): the result of
+    one lane (no lane axis)."""
+    wl = workload.to(resolve_device(device))
+    return make_run_fn(wl, policy, cfg)(initial_state(wl, cfg)).lane(0)

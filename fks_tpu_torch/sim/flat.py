@@ -1,9 +1,10 @@
 """The flat (slot-per-pod) event-queue engine, lanes written out.
 
-Port of fks_tpu.sim.flat for the default flags: best_fit or first_fit GPU
-allocation, packed or unpacked ``aux``, ``track_ctime`` on or off. It is
-the fused kernel's specification (csrc/fused_sim.cu) and its plain
-version.
+Port of fks_tpu.sim.flat: best_fit or first_fit GPU allocation, packed or
+unpacked ``aux``, ``track_ctime`` on or off, and the ``watchdog``,
+``probe_score`` and ``validate_invariants`` flags (through the shared
+guards, ``_audit`` and ``finalize_fields``). It is the fused kernel's
+specification (csrc/fused_sim.cu) and its plain version.
 
 One slot per pod, in tie-rank order: ``ev_time[L, Q]`` holds each slot's
 pending event time (INF = none) and ``aux[L, Q]`` its scheduling state
@@ -21,8 +22,8 @@ The step updates the queue tensors (``ev_time``, ``aux``, ``aux_gpus``,
 ``pod_ctime``, ``wait_hist``) in place instead of copying them per event.
 
 Not ported yet (a ValueError names the slice): fault timelines,
-``node_prefilter_k``, ``state_pack``, ``watchdog``, ``decision_trace``,
-``probe_score``, ``validate_invariants`` and the segmented runner.
+``node_prefilter_k``, ``state_pack``, ``decision_trace`` and the segmented
+runner.
 """
 from __future__ import annotations
 
@@ -32,42 +33,19 @@ from typing import Callable
 import torch
 
 from fks_tpu_torch.data.entities import Workload
+from fks_tpu_torch.device import resolve_device
 from fks_tpu_torch.ops.allocator import best_fit_gpus, first_fit_gpus
 from fks_tpu_torch.sim.engine import (
-    FinalView, SimConfig, _node_view, finalize_fields, loop_tables,
+    FinalView, SimConfig, _audit, _node_view, broadcast_state, check_ported,
+    finalize_fields, hist_size, loop_tables, run_batched_lanes,
 )
+from fks_tpu_torch.sim.guards import guard_scores
 from fks_tpu_torch.sim.types import FlatState, PodView, PolicyFn, SimResult
 
 INF = 2**31 - 1  # empty-slot sentinel (int32 max)
 
 AUX_FRESH = -1    # CREATE pending, never failed
 AUX_WAITING = -2  # retried CREATE pending or dropped (in the waiting set)
-
-#: steps between the host's checks that some lane is still active; the
-#: step is self-masking, so the extra steps of the last round are no-ops
-SYNC_EVERY = 16
-
-_LATER = "a later slice of the port (ROADMAP queue 1)"
-
-
-def check_ported(workload: Workload, cfg: SimConfig) -> None:
-    """Raise ValueError for an option of fks_tpu's flat engine that the
-    port does not implement yet."""
-    pending = [
-        (workload.faults is not None, "fault-injected workloads"),
-        (bool(cfg.node_prefilter_k), "node_prefilter_k"),
-        (cfg.state_pack, "state_pack"),
-        (cfg.watchdog, "watchdog"),
-        (cfg.decision_trace, "decision_trace"),
-        (cfg.probe_score, "probe_score"),
-        (cfg.validate_invariants, "validate_invariants"),
-    ]
-    for on, name in pending:
-        if on:
-            raise ValueError(f"{name} is not ported yet; it waits for "
-                             f"{_LATER}: the flat engine's remaining flags")
-    if cfg.gpu_allocator not in ("best_fit", "first_fit"):
-        raise ValueError(f"unknown gpu_allocator {cfg.gpu_allocator!r}")
 
 
 def _node_bits(n_padded: int) -> int:
@@ -79,23 +57,16 @@ def _packable(n_padded: int, g_padded: int) -> bool:
     return _node_bits(n_padded) + g_padded <= 31
 
 
+def runs_every_branch(device: torch.device) -> bool:
+    """Whether the flat step runs its optional branches unconditionally:
+    on CUDA, where asking whether any lane needs one is a host sync."""
+    return device.type == "cuda"
+
+
 def rank_perm(pod_mask: torch.Tensor, tie_rank: torch.Tensor) -> torch.Tensor:
     """Slot order: real pods by ascending tie_rank, padding last (stable)."""
     key = torch.where(pod_mask, tie_rank.to(torch.int64), INF)
     return torch.sort(key, stable=True).indices
-
-
-def hist_size(workload: Workload, cfg: SimConfig) -> int:
-    """Waiting-histogram width; must exceed the trace's max gpu_milli."""
-    p = workload.pods
-    max_milli = int(p.gpu_milli.max()) if p.p_padded else 0
-    size = (cfg.wait_hist_size if cfg.wait_hist_size is not None
-            else max(1001, max_milli + 2))
-    if size <= max_milli:
-        raise ValueError(
-            f"wait_hist_size {size} <= trace max gpu_milli; "
-            "fragmentation min_needed would be miscounted")
-    return size
 
 
 def initial_state(workload: Workload, cfg: SimConfig,
@@ -134,7 +105,8 @@ def initial_state(workload: Workload, cfg: SimConfig,
         frag_sum=torch.zeros(lanes, dtype=f, device=dev),
         frag_count=zeros.clone(), max_nodes=zeros.clone(),
         failed=torch.zeros(lanes, dtype=torch.bool, device=dev),
-        steps=zeros.clone(),
+        steps=zeros.clone(), violations=zeros.clone(),
+        numeric_flags=zeros.clone(),
     )
 
 
@@ -149,10 +121,12 @@ def build_step(workload: Workload, policy: PolicyFn, cfg: SimConfig,
     """One event in every lane. ``policy(PodView, NodeView) -> i32[L, N]``
     scores all lanes at once.
 
-    Per-lane scalars are ``[L, 1]`` columns inside the step. Work that
-    only some events need (refunds, scoring, GPU picks, fragmentation,
-    snapshots) is skipped when no lane needs it: those branches only ever
-    add masked-out zeros, so skipping them changes no result."""
+    Per-lane scalars are ``[L, 1]`` columns inside the step. On the CPU,
+    work that only some events need (refunds, scoring, GPU picks,
+    fragmentation, snapshots) is skipped when no lane needs it: those
+    branches only ever add masked-out zeros, so skipping them changes no
+    result. On CUDA every branch runs, so the step never waits for the
+    card to answer "does any lane need it"."""
     check_ported(workload, cfg)
     c, p = workload.cluster, workload.pods
     dev = workload.device
@@ -178,6 +152,15 @@ def build_step(workload: Workload, policy: PolicyFn, cfg: SimConfig,
     perm = rank_perm(p.pod_mask, p.tie_rank)
     feat = torch.stack([p.cpu, p.mem, p.num_gpu, p.gpu_milli, p.duration],
                        dim=-1)[perm].to(i32)  # [Q, 5]
+    if cfg.validate_invariants:  # the audit's pods, in slot order
+        p_slot = dataclasses.replace(
+            p, cpu=p.cpu[perm], mem=p.mem[perm], num_gpu=p.num_gpu[perm],
+            gpu_milli=p.gpu_milli[perm])
+
+    every = runs_every_branch(dev)
+
+    def needed(mask: torch.Tensor) -> bool:
+        return every or bool(mask.any())
 
     def step(s: FlatState) -> FlatState:
         lanes = s.lanes
@@ -197,7 +180,7 @@ def build_step(workload: Workload, policy: PolicyFn, cfg: SimConfig,
         # ---- DELETION: refund the held node and GPUs
         cpu_left, mem_left = s.cpu_left, s.mem_left
         gpu_left, gml = s.gpu_left, s.gpu_milli_left
-        if bool(is_del.any()):
+        if needed(is_del):
             if packed:
                 held_node = aux_s >> g
                 held_bits = (aux_s & ((1 << g) - 1)).to(i64)
@@ -216,13 +199,17 @@ def build_step(workload: Workload, policy: PolicyFn, cfg: SimConfig,
         placed = pl = alloc_fail = no
         w = torch.zeros((lanes, 1), dtype=torch.int64, device=dev)
         new_bits = torch.zeros((lanes, 1), dtype=i64, device=dev)
-        if bool(create.any()):
+        numeric_flags = s.numeric_flags
+        if needed(create):
             pod = PodView(pcpu, pmem, pngpu, pmilli, t, pdur)
             nodes = _node_view(c, cpu_left, mem_left, gpu_left, gml)
-            scores = policy(pod, nodes) * node_mask
+            raw, numeric_flags = guard_scores(
+                policy(pod, nodes), create[:, 0], numeric_flags,
+                enabled=cfg.watchdog)
+            scores = torch.where(c.node_mask, raw, 0)
             w = scores.argmax(dim=1, keepdim=True)  # first maximal index
             placed = create & (scores.gather(1, w) > 0)
-        if bool(placed.any()):
+        if needed(placed):
             rows = torch.arange(lanes, device=dev)
             sel, ok = alloc(gml[rows, w[:, 0]], c.gpu_mask[w[:, 0]],
                             pmilli[:, 0], pngpu[:, 0])
@@ -238,9 +225,9 @@ def build_step(workload: Workload, policy: PolicyFn, cfg: SimConfig,
 
         # ---- failed creation: waiting histogram + fragmentation + retry
         failp = create & ~placed
-        any_fail = bool(failp.any())
+        any_fail = needed(failp)
         hist = s.wait_hist
-        if any_fail or bool(pl.any()):
+        if any_fail or needed(pl):
             hdelta = ((failp & ~was_waiting & gpu_pod).to(i32)
                       - (pl & was_waiting & gpu_pod).to(i32))
             hist.scatter_add_(1, pmilli.clamp(0, hist.shape[1] - 1), hdelta)
@@ -285,7 +272,7 @@ def build_step(workload: Workload, policy: PolicyFn, cfg: SimConfig,
         fire = valid & (s.snap_idx < klen) & (
             events >= ktable[s.snap_idx.clamp(max=klen - 1)])
         snap_sums, snap_idx = s.snap_sums, s.snap_idx
-        if bool(fire.any()):
+        if needed(fire):
             used = torch.stack([
                 totals[0] - cpu_left.sum(dim=1, dtype=i64),
                 totals[1] - mem_left.sum(dim=1, dtype=i64),
@@ -300,24 +287,30 @@ def build_step(workload: Workload, policy: PolicyFn, cfg: SimConfig,
             | (gpu_left < c.num_gpus))).sum(dim=1, dtype=i32)
         max_nodes = torch.maximum(s.max_nodes, active_nodes * valid)
 
+        violations = s.violations
+        if cfg.validate_invariants:  # slots still holding a DELETE
+            an, ag = decode_assignment(s.aux, s.aux_gpus, g, packed)
+            violations = violations + act[:, 0].to(i32) * _audit(
+                c, p_slot, (s.aux >= 0) & (s.ev_time < INF), cpu_left,
+                mem_left, gpu_left, gml, an, ag)
+
         return dataclasses.replace(
             s, pending=pending, cpu_left=cpu_left, mem_left=mem_left,
             gpu_left=gpu_left, gpu_milli_left=gml, events_processed=events,
             snap_idx=snap_idx, snap_sums=snap_sums, frag_sum=frag_sum,
             frag_count=s.frag_count + failp[:, 0].to(i32),
             max_nodes=max_nodes, failed=s.failed | alloc_fail[:, 0],
-            steps=s.steps + act[:, 0].to(i32))
+            steps=s.steps + act[:, 0].to(i32), violations=violations,
+            numeric_flags=numeric_flags)
 
     return step
 
 
 def run_lanes(step, s: FlatState, max_steps: int) -> FlatState:
-    """Drive self-masking lanes until none is active (the host checks every
-    ``SYNC_EVERY`` steps; the extra steps are no-ops)."""
-    while bool(lane_active(s, max_steps).any()):
-        for _ in range(SYNC_EVERY):
-            s = step(s)
-    return s
+    """Drive self-masking lanes until none is active: the host checks every
+    ``SYNC_EVERY`` steps (the extra steps are no-ops); on CUDA the steps
+    between checks are one replayed CUDA graph (``engine.GraphedChunk``)."""
+    return run_batched_lanes(step, s, max_steps, active_fn=lane_active)
 
 
 def decode_assignment(aux, aux_gpus, g: int, packed: bool):
@@ -345,18 +338,32 @@ def finalize(workload: Workload, cfg: SimConfig, s: FlatState) -> SimResult:
         gpu_milli_left=s.gpu_milli_left,
         events_processed=s.events_processed, snap_idx=s.snap_idx,
         snap_sums=s.snap_sums, frag_sum=s.frag_sum,
-        frag_count=s.frag_count, max_nodes=s.max_nodes, failed=s.failed)
+        frag_count=s.frag_count, max_nodes=s.max_nodes, failed=s.failed,
+        violations=s.violations, numeric_flags=s.numeric_flags)
     return finalize_fields(workload, cfg, pending=s.pending > 0, s=view)
 
 
-def broadcast_state(state0: FlatState, lanes: int) -> FlatState:
-    """``lanes`` independent copies of a one-lane state."""
-    return FlatState(**{
-        f.name: (None if getattr(state0, f.name) is None else
-                 getattr(state0, f.name).expand(
-                     (lanes,) + tuple(getattr(state0, f.name).shape[1:]))
-                 .clone())
-        for f in dataclasses.fields(state0)})
+def make_param_run_fn(workload: Workload, param_policy,
+                      cfg: SimConfig = SimConfig()):
+    """``run(params, state) -> SimResult``: drives every lane of ``state``
+    with ``param_policy(params, pod, nodes)`` and finalizes."""
+    ktable, max_steps = loop_tables(workload, cfg)
+
+    def run(params, state: FlatState) -> SimResult:
+        step = build_step(
+            workload, lambda pod, nodes: param_policy(params, pod, nodes),
+            cfg, ktable, max_steps)
+        return finalize(workload, cfg, run_lanes(step, state, max_steps))
+
+    return run
+
+
+def make_run_fn(workload: Workload, policy: PolicyFn,
+                cfg: SimConfig = SimConfig()):
+    """``run(state) -> SimResult`` for a plain policy."""
+    run = make_param_run_fn(workload, lambda _p, pod, nodes:
+                            policy(pod, nodes), cfg)
+    return lambda state: run(None, state)
 
 
 def make_population_run_fn(workload: Workload, param_policy,
@@ -364,23 +371,14 @@ def make_population_run_fn(workload: Workload, param_policy,
     """``run(params[P, ...], state0) -> SimResult`` over P lanes: one host
     loop whose body is the lane-batched self-masking step. ``state0`` is a
     one-lane ``initial_state``; ``param_policy(params, pod, nodes)``."""
-    ktable, max_steps = loop_tables(workload, cfg)
-
-    def run(params, state0: FlatState) -> SimResult:
-        step = build_step(
-            workload, lambda pod, nodes: param_policy(params, pod, nodes),
-            cfg, ktable, max_steps)
-        final = run_lanes(step, broadcast_state(state0, params.shape[0]),
-                          max_steps)
-        return finalize(workload, cfg, final)
-
-    return run
+    run = make_param_run_fn(workload, param_policy, cfg)
+    return lambda params, state0: run(
+        params, broadcast_state(state0, params.shape[0]))
 
 
 def simulate(workload: Workload, policy: PolicyFn,
-             cfg: SimConfig = SimConfig()) -> SimResult:
-    """One policy, one lane: the result of lane 0 (no lane axis)."""
-    ktable, max_steps = loop_tables(workload, cfg)
-    step = build_step(workload, policy, cfg, ktable, max_steps)
-    final = run_lanes(step, initial_state(workload, cfg), max_steps)
-    return finalize(workload, cfg, final).lane(0)
+             cfg: SimConfig = SimConfig(), device=None) -> SimResult:
+    """One policy, one lane, on ``device`` (default ``cuda``): the result
+    of lane 0 (no lane axis)."""
+    wl = workload.to(resolve_device(device))
+    return make_run_fn(wl, policy, cfg)(initial_state(wl, cfg)).lane(0)

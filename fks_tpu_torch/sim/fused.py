@@ -37,7 +37,7 @@ from fks_tpu_torch.models import parametric
 from fks_tpu_torch.models.parametric import NUM_FEATURES
 from fks_tpu_torch.sim import flat
 from fks_tpu_torch.sim.engine import (
-    FinalView, SimConfig, finalize_fields, loop_tables,
+    FinalView, SimConfig, finalize_fields, hist_size, loop_tables,
 )
 from fks_tpu_torch.sim.types import SimResult
 
@@ -115,11 +115,11 @@ def _build_plan(workload: Workload, cfg: SimConfig,
                          "not supported in the fused kernel")
     if cfg.watchdog:
         raise ValueError("the numerics watchdog (SimConfig.watchdog) is not "
-                         "ported yet; it waits for a later slice of the "
-                         "port (sim/guards.py)")
+                         "supported in the fused kernel; use engine='exact' "
+                         "or 'flat'")
     dev = workload.device if device is None else torch.device(device)
     q = _round_up(pp, 128)
-    hist = flat.hist_size(workload, cfg)
+    hist = hist_size(workload, cfg)
     if hist > MAX_HIST:
         raise ValueError(f"fused kernel keeps at most {MAX_HIST} waiting-"
                          f"histogram buckets, not {hist}; use engine='flat'")
@@ -261,6 +261,7 @@ def make_fused_population_run(workload: Workload,
         params = torch.as_tensor(params).to(dev, torch.float32).contiguous()
         pop = params.shape[0]
         aux, cpu, mem, gpu, gmil, acci, accf = fused_sim(plan, params)
+        zero = torch.zeros_like(acci[:, 0])
         an, ag = flat.decode_assignment(aux[:, :pp], None, plan.g, True)
         view = FinalView(
             assigned_node=an[:, inv], assigned_gpus=ag[:, inv],
@@ -269,7 +270,7 @@ def make_fused_population_run(workload: Workload,
             events_processed=acci[:, 2], snap_idx=acci[:, 3],
             snap_sums=accf[:, 0:4], frag_sum=accf[:, 4],
             frag_count=acci[:, 4], max_nodes=acci[:, 5],
-            failed=acci[:, 6] > 0)
+            failed=acci[:, 6] > 0, violations=zero, numeric_flags=zero)
         return finalize_fields(wl, cfg, pending=acci[:, 0] > 0, s=view)
 
     run.plan = plan

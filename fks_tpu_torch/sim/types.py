@@ -11,8 +11,7 @@ port writes the lane axis out: every per-lane quantity carries a leading
 
 A policy scores one pod against every node of every lane:
 ``policy(PodView, NodeView) -> i32[L, N]``; 0 means "cannot/refuse".
-``SimState`` and ``TraceBuffer`` (exact heap engine, decision trace) wait
-for later slices.
+``TraceBuffer`` (the decision trace) waits for a later slice.
 """
 from __future__ import annotations
 
@@ -20,6 +19,8 @@ import dataclasses
 from typing import Callable, NamedTuple, Optional
 
 import torch
+
+from fks_tpu_torch.ops.heap import EventHeap
 
 
 class PodView(NamedTuple):
@@ -80,10 +81,70 @@ class FlatState:
     max_nodes: torch.Tensor  # i32[L]
     failed: torch.Tensor  # bool[L]
     steps: torch.Tensor  # i32[L]
+    violations: torch.Tensor  # i32[L] invariant-audit failures
+    numeric_flags: torch.Tensor  # i32[L] watchdog bitmask (sim.guards)
 
     @property
     def lanes(self) -> int:
         return int(self.ev_time.shape[0])
+
+
+@dataclasses.dataclass
+class SimState:
+    """The exact engine's carry for L lanes (fks_tpu.sim.types.SimState
+    with the lane axis written out): the heap replica plus cluster and
+    evaluator state.
+
+    Per-pod scheduling state lives as the columns of one ``i32[L, P, 4]``
+    matrix, in input order, so an event reads and writes its pod with one
+    row gather and one row scatter: (assigned node, GPU bitmask bit-cast
+    to int32, retry-mutated creation time, waiting flag). The exact step
+    updates ``heap.data``, ``pod_state`` and ``wait_hist`` in place."""
+
+    heap: EventHeap
+    cpu_left: torch.Tensor  # i32[L, N]
+    mem_left: torch.Tensor  # i32[L, N]
+    gpu_left: torch.Tensor  # i32[L, N]
+    gpu_milli_left: torch.Tensor  # i32[L, N, G]
+    pod_state: torch.Tensor  # i32[L, P, 4] (see class docstring)
+    wait_hist: torch.Tensor  # i32[L, H] gpu_milli histogram of waiting pods
+    events_processed: torch.Tensor  # i32[L]
+    snap_idx: torch.Tensor  # i32[L]
+    snap_sums: torch.Tensor  # f[L, 4]
+    frag_sum: torch.Tensor  # f[L]
+    frag_count: torch.Tensor  # i32[L]
+    max_nodes: torch.Tensor  # i32[L]
+    failed: torch.Tensor  # bool[L]
+    steps: torch.Tensor  # i32[L]
+    violations: torch.Tensor  # i32[L] invariant-audit failures
+    numeric_flags: torch.Tensor  # i32[L] watchdog bitmask (sim.guards)
+
+    # pod_state column indices
+    COL_NODE = 0
+    COL_BITS = 1
+    COL_CTIME = 2
+    COL_WAIT = 3
+
+    @property
+    def lanes(self) -> int:
+        return int(self.cpu_left.shape[0])
+
+    @property
+    def assigned_node(self) -> torch.Tensor:  # i32[L, P], -1 = unassigned
+        return self.pod_state[..., SimState.COL_NODE]
+
+    @property
+    def assigned_gpus(self) -> torch.Tensor:  # i64[L, P] bitmask over G
+        return (self.pod_state[..., SimState.COL_BITS].to(torch.int64)
+                & 0xFFFFFFFF)
+
+    @property
+    def pod_ctime(self) -> torch.Tensor:  # i32[L, P], mutated on retry
+        return self.pod_state[..., SimState.COL_CTIME]
+
+    @property
+    def waiting(self) -> torch.Tensor:  # bool[L, P] waiting-set membership
+        return self.pod_state[..., SimState.COL_WAIT] != 0
 
 
 @dataclasses.dataclass
@@ -111,8 +172,9 @@ class SimResult:
     gpu_milli_left: torch.Tensor  # i32[L, N, G]
     failed: torch.Tensor  # bool[L]
     truncated: torch.Tensor  # bool[L]
-    invariant_violations: torch.Tensor  # i32[L] (the audit is not ported)
-    numeric_flags: torch.Tensor  # i32[L] (the watchdog is not ported)
+    invariant_violations: torch.Tensor  # i32[L] (0 unless validate_invariants)
+    # i32[L] watchdog bitmask (sim.guards.FLAG_*; 0 unless SimConfig.watchdog)
+    numeric_flags: torch.Tensor
 
     def lane(self, i: int) -> "SimResult":
         """The result of lane ``i`` alone (leading axis dropped)."""

@@ -4,6 +4,9 @@ small workloads the comparisons run on.
 The split and tolerances are fks_tpu's own bar between its fused kernel
 and its flat engine (tests/test_fused.py:24-45): integer observables must
 be equal; float accumulators may differ by a few ulp (rtol = atol = 2e-6).
+Against the reference's golden fixtures (tests/fixtures/golden_*.json) the
+bar is fks_tpu's parity test (tests/test_engine_parity.py): integers
+exact, floats within 1e-9.
 """
 from __future__ import annotations
 
@@ -133,6 +136,81 @@ def tied_workload():
 
     nodes, pods, pad = tied_workload_specs()
     return make_workload(nodes, pods, **pad)
+
+
+def golden_micro_workload():
+    """The reference's 2-node x 4-pod micro scenario (reference
+    tests/test_simulator.py; fks_tpu tests/test_engine_micro.py), which
+    ``golden_micro.json`` records with ``micro_best_fit``."""
+    from fks_tpu_torch.data.build import make_workload
+
+    nodes = [
+        {"node_id": "node1", "cpu_milli": 8000, "memory_mib": 16000,
+         "gpus": [1000, 1000], "gpu_memory_mib": 8000},
+        {"node_id": "node2", "cpu_milli": 4000, "memory_mib": 8000,
+         "gpus": []},
+    ]
+    pods = [
+        {"pod_id": "pod1", "cpu_milli": 1000, "memory_mib": 2000,
+         "num_gpu": 0, "gpu_milli": 0, "creation_time": 0,
+         "duration_time": 10},
+        {"pod_id": "pod2", "cpu_milli": 2000, "memory_mib": 4000,
+         "num_gpu": 1, "gpu_milli": 500, "creation_time": 5,
+         "duration_time": 15},
+        {"pod_id": "pod3", "cpu_milli": 3000, "memory_mib": 6000,
+         "num_gpu": 0, "gpu_milli": 0, "creation_time": 10,
+         "duration_time": 8},
+        {"pod_id": "pod4", "cpu_milli": 1500, "memory_mib": 3000,
+         "num_gpu": 2, "gpu_milli": 400, "creation_time": 15,
+         "duration_time": 12},
+    ]
+    return make_workload(nodes, pods, pad_nodes_to=4, pad_gpus_to=4,
+                         pad_pods_to=8)
+
+
+def _gpu_indices(bits) -> list:
+    return [i for i in range(64) if (int(bits) >> i) & 1]
+
+
+def assert_golden_micro(res, golden: Mapping, wl) -> None:
+    """One-lane ``res`` of ``micro_best_fit`` on ``golden_micro_workload``
+    equals ``golden_micro.json``: placements, GPU picks, final state."""
+    n_pods, n = wl.num_pods, wl.num_nodes
+    assert not bool(res.failed) and not bool(res.truncated)
+    assert res.assigned_node[:n_pods].tolist() == golden["assignments"]
+    assert [_gpu_indices(b) for b in res.assigned_gpus[:n_pods].tolist()] \
+        == golden["assigned_gpus"]
+    assert int(res.scheduled_pods) == golden["scheduled_pods"]
+    assert int(res.max_nodes) == golden["max_nodes"]
+    for key, got in (("final_cpu_left", res.cpu_left),
+                     ("final_mem_left", res.mem_left),
+                     ("final_gpu_left", res.gpu_left)):
+        assert got[:n].tolist() == golden[key], key
+    gml = res.gpu_milli_left.tolist()
+    for i, row in enumerate(golden["final_gpu_milli_left"]):
+        assert gml[i][:len(row)] == row
+
+
+def assert_golden_parity(res, ref: Mapping, wl, tol: float = 1e-9) -> None:
+    """One-lane ``res`` equals a policy's record in ``golden_default.json``
+    or ``golden_alt_traces.json``: event, snapshot and fragmentation
+    counts, placements, retry-mutated creation times and final remnants
+    exact; fitness and utilizations within ``tol``."""
+    assert not bool(res.failed) and not bool(res.truncated)
+    for key in ("events_processed", "num_snapshots",
+                "num_fragmentation_events", "scheduled_pods", "max_nodes"):
+        assert int(getattr(res, key)) == ref[key], key
+    n_pods, n = wl.num_pods, wl.num_nodes
+    assert res.assigned_node[:n_pods].tolist() == ref["assignments"]
+    assert res.pod_ctime[:n_pods].tolist() == ref["final_creation_time"]
+    assert res.cpu_left[:n].tolist() == ref["final_cpu_left"]
+    gml = res.gpu_milli_left.tolist()
+    for i, row in enumerate(ref["final_gpu_milli_left"]):
+        assert gml[i][:len(row)] == row
+    for key in ("policy_score", "avg_cpu_utilization",
+                "avg_memory_utilization", "avg_gpu_count_utilization",
+                "avg_gpu_memory_utilization", "gpu_fragmentation_score"):
+        assert abs(float(getattr(res, key)) - ref[key]) < tol, key
 
 
 def result_fields(result) -> dict:

@@ -112,21 +112,55 @@ def test_zoo_simulate_matches(name):
     jwl = _contended()
     cfg = dict(max_steps=4 * 96)
     ref = jflat.simulate(jwl, jzoo.ZOO[name](), JaxConfig(**cfg))
-    res = flat.simulate(port_workload(jwl), zoo.ZOO[name](), SimConfig(**cfg))
+    res = flat.simulate(port_workload(jwl), zoo.ZOO[name](), SimConfig(**cfg),
+                        device="cpu")
     assert res.policy_score.shape == ()
     assert_result_matches(res, result_fields(ref))
 
 
 @pytest.mark.parametrize("flag", [
-    dict(node_prefilter_k=2), dict(state_pack=True), dict(watchdog=True),
-    dict(decision_trace=True), dict(probe_score=True),
-    dict(validate_invariants=True)])
+    dict(node_prefilter_k=2), dict(state_pack=True),
+    dict(decision_trace=True)])
 def test_unported_flags_raise(flag):
     wl = port_workload(_roomy())
     with pytest.raises(ValueError, match="later slice"):
         flat.initial_state(wl, SimConfig(**flag))
     with pytest.raises(ValueError, match="later slice"):
-        flat.simulate(wl, zoo.best_fit(), SimConfig(**flag))
+        flat.simulate(wl, zoo.best_fit(), SimConfig(**flag), device="cpu")
+
+
+@pytest.mark.parametrize("flag", [
+    dict(watchdog=True), dict(probe_score=True),
+    dict(validate_invariants=True)])
+def test_ported_flags_keep_clean_results(flag):
+    """The watchdog, probe scoring and the audit, once rejected, now run
+    and leave a clean full run as it was (tests/test_torch_exact.py holds
+    each flag against fks_tpu on both engines)."""
+    wl = port_workload(_roomy())
+    base = flat.simulate(wl, zoo.best_fit(), SimConfig(), device="cpu")
+    res = flat.simulate(wl, zoo.best_fit(), SimConfig(**flag), device="cpu")
+    assert not bool(base.truncated) and float(base.policy_score) > 0
+    assert_result_matches(res, result_fields(base), rtol=0, atol=0)
+    assert int(res.numeric_flags) == 0
+
+
+@pytest.mark.parametrize("workload", ["contended", "roomy-first-fit"])
+def test_every_branch_step_matches_skipping_step(workload, monkeypatch):
+    """The CUDA form of the step (every optional branch runs, no host
+    check) gives the CPU form's results, rehearsed here on the CPU."""
+    if workload == "contended":
+        jwl, cfg = _contended(), SimConfig(max_steps=4 * 96)
+    else:
+        jwl, cfg = _roomy(), SimConfig(gpu_allocator="first_fit")
+    wl = port_workload(jwl)
+    params = torch.from_numpy(jax_population(11, 6, 0.5))
+    run = flat.make_population_run_fn(wl, parametric.score, cfg)
+    want = run(params, flat.initial_state(wl, cfg))
+    monkeypatch.setattr(flat, "runs_every_branch", lambda dev: True)
+    got = run(params, flat.initial_state(wl, cfg))
+    assert_result_matches(got, result_fields(want), rtol=0, atol=0)
+    np.testing.assert_array_equal(got.pod_ctime.numpy(),
+                                  want.pod_ctime.numpy())
 
 
 def test_fault_workloads_raise():

@@ -42,6 +42,15 @@ def test_port_never_imports_jax_or_fks_tpu():
     assert not bad, bad
 
 
+def test_chip_smoke_is_scanned_and_clean():
+    """chip_smoke.py runs on the card machine, where JAX is not installed:
+    the scan covers it, and it imports neither JAX nor fks_tpu."""
+    smoke = ROOT / "chip_smoke.py"
+    assert smoke in port_files()
+    roots = {mod for mod, _ in imported_roots(smoke)}
+    assert "fks_tpu_torch" in roots and not roots & FORBIDDEN
+
+
 def test_scan_sees_forbidden_imports(tmp_path):
     probe = tmp_path / "probe.py"
     probe.write_text("import jax.numpy as jnp\nfrom fks_tpu.sim import flat\n"

@@ -5,6 +5,8 @@ fks_tpu's (jit-compiled flat; the fused engine in fks_tpu's interpret
 mode); ``ParametricEvolution`` keeps its elites in the leading slots and
 never lowers its best score.
 """
+import inspect
+
 import jax
 import numpy as np
 import pytest
@@ -63,8 +65,18 @@ def test_engine_choices():
     with pytest.raises(ValueError, match="parametric"):
         make_population_eval(wl, param_policy=lambda p, a, b: 0,
                              engine="fused", device="cpu")
-    with pytest.raises(ValueError, match="not ported"):
-        make_population_eval(wl, engine="exact", device="cpu")
+    with pytest.raises(ValueError, match="unknown engine"):
+        make_population_eval(wl, engine="heap", device="cpu")
+    # exact runs, and is the default, as in fks_tpu
+    params = torch.stack([parametric.seed_weights(n)
+                          for n in parametric.SEED_NAMES])
+    exact = make_population_eval(wl, engine="exact", device="cpu")(params)
+    default = make_population_eval(wl, device="cpu")(params)
+    assert_result_matches(default, result_fields(exact), rtol=0, atol=0)
+    assert exact.policy_score.shape == (4,)
+    assert bool((exact.policy_score > 0).all())
+    for fn in (make_population_eval, ParametricEvolution):
+        assert inspect.signature(fn).parameters["engine"].default == "exact"
 
 
 def test_next_generation_keeps_elites_in_leading_slots():
