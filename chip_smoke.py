@@ -35,7 +35,24 @@ Phases (any failure raises and exits non-zero):
    steps and graph replays; ``make_population_eval(engine="exact")`` at
    pop 256 on phase 4's population, then lanes 0 and 4 alone, which must
    equal their batched results exactly;
-7. one ``{"kernels": [...]}`` line, then the last line
+7. the policies on the card: every zoo policy (``ZOO``,
+   ``BASELINE_FACTORIES``, ``micro_best_fit``) and ``parametric.score``,
+   in float32 and float64, on 4 x 256 random views; the integer scores
+   must equal the same views scored on the CPU;
+8. scenario suites (plain PyTorch ops replayed as CUDA graphs, no hand
+   kernel): ``golden_scenario_fault.json`` through the exact and flat
+   engines with first_fit and best_fit, held to its pins (score within
+   1e-5; counts, the per-CREATE assignments from the decision trace and
+   the fault rows exact); ``default8`` on the full default trace through
+   the exact engine for the first 32 of phase 4's population (256 lanes),
+   timed, with the champion's eight scores and its mean, min and
+   CVaR-0.25 robust scores; the champion alone on the suite and on
+   ``fault2`` alone, equal to its batched results exactly; ``default8``
+   through the flat engine for the champion, timed; the champion's
+   decision trace on ``fault1`` (its score equals the untraced run, its
+   fault rows the scenario's fault count) and ``trace_diff`` of the exact
+   engine against itself (no divergence);
+9. one ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the fks_tpu package.
@@ -217,6 +234,184 @@ def exact_phase(dev, wl, params, card) -> None:
         f"phase {time.perf_counter() - t_phase:.1f} s")
 
 
+def zoo_phase(dev) -> None:
+    """Phase 7 (module docstring): policy scores on the card == CPU."""
+    import torch
+
+    from fks_tpu_torch.models import parametric, zoo
+    from fks_tpu_torch.testing import random_policy_views
+
+    t0 = time.perf_counter()
+    factories = {**zoo.ZOO, **zoo.BASELINE_FACTORIES,
+                 "micro_best_fit": zoo.micro_best_fit}
+    views = [random_policy_views(seed) for seed in range(4)]
+    checked = 0
+    for dtype in (torch.float32, torch.float64):
+        policies = {name: make(dtype) for name, make in factories.items()}
+        for pod, nodes, w in views:
+            policies["parametric"] = (
+                lambda p, n, w=w, d=dtype: parametric.score(w.to(p[0].device),
+                                                            p, n, dtype=d))
+            card_pod = type(pod)(*(x.to(dev) for x in pod))
+            card_nodes = type(nodes)(*(x.to(dev) for x in nodes))
+            for name, policy in policies.items():
+                want = policy(pod, nodes)
+                got = policy(card_pod, card_nodes).cpu()
+                if not torch.equal(got, want):
+                    bad = (got != want).nonzero()[0].tolist()
+                    raise AssertionError(
+                        f"{name} {dtype}: card score {got[tuple(bad)]} != "
+                        f"CPU {want[tuple(bad)]} at {bad} "
+                        f"({int((got != want).sum())} scores differ)")
+                checked += want.numel()
+    log(f"[zoo] {len(factories) + 1} policies x float32/float64 x 4 draws: "
+        f"{checked} integer scores on the card equal the CPU's "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+
+def scenario_phase(dev, wl, params, card) -> None:
+    """Phase 8 (module docstring): scenario suites on the card."""
+    import torch
+
+    from fks_tpu_torch.data.synthetic import synthetic_workload
+    from fks_tpu_torch.models import parametric, zoo
+    from fks_tpu_torch.obs import tracing
+    from fks_tpu_torch.scenarios import (
+        RobustConfig, ScenarioSpec, aggregate, get_suite, make_suite_eval,
+        perturb_workload,
+    )
+    from fks_tpu_torch.sim import engine
+    from fks_tpu_torch.sim.engine import SimConfig
+    from fks_tpu_torch.testing import assert_result_matches, result_fields
+
+    t_phase = time.perf_counter()
+    golden = json.loads((ROOT / "tests" / "fixtures"
+                         / "golden_scenario_fault.json").read_text())
+    gwl = perturb_workload(synthetic_workload(**golden["workload"]),
+                           ScenarioSpec(**golden["spec"]))
+    for eng in ("exact", "flat"):
+        for name in ("first_fit", "best_fit"):
+            pin = golden["policies"][name]
+            policy = zoo.ZOO[name]()
+            res = tracing.replay(gwl, eng, lambda _p, pod, nodes, f=policy:
+                                 f(pod, nodes), None, device=dev)
+            rows = tracing.extract_trace(res)
+            got = {"policy_score": float(res.policy_score),
+                   "scheduled_pods": int(res.scheduled_pods),
+                   "events_processed": int(res.events_processed),
+                   "assignments": [[r["pod"], r["node"]] for r in rows
+                                   if r["kind"] == "CREATE"],
+                   "fault_rows": sum(r["kind"] in ("NODE_DOWN", "NODE_UP")
+                                     for r in rows)}
+            if abs(got["policy_score"] - pin["policy_score"]) > 1e-5 or any(
+                    got[k] != pin[k] for k in ("scheduled_pods",
+                                               "events_processed",
+                                               "assignments", "fault_rows")):
+                raise AssertionError(f"golden fault pin {eng}/{name}: got "
+                                     f"{got}, pinned {pin}")
+    log("[scenarios] golden_scenario_fault: exact and flat x first_fit and "
+        "best_fit hold the pins (score, counts, per-CREATE assignments, "
+        "fault rows)")
+
+    suite = get_suite("default8", wl)
+    cfg = SimConfig()
+    cands = params[:32]
+    lanes = cands.shape[0] * len(suite)
+    evaluate = make_suite_eval(suite, cfg=cfg, population=True, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batched = evaluate(cands)  # the capture included
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps = evaluate.graphs[cands.shape[0]].state.steps.double()
+    scores = batched.policy_score
+    if scores.shape != (32, len(suite)) \
+            or not bool(torch.isfinite(scores).all()) \
+            or not bool(((scores >= 0) & (scores <= 1)).all()):
+        raise AssertionError(f"bad default8 scores: {scores}")
+    champ = scores[4]
+    robust = {agg: float(aggregate(champ, RobustConfig(agg)))
+              for agg in ("mean", "min", "cvar")}
+    log(f"[scenarios] default8 exact, {cands.shape[0]} candidates x "
+        f"{len(suite)} scenarios = {lanes} lanes: {wall:.3f} s/eval with the "
+        f"graph capture, {lanes / wall:.2f} evals/s (candidate x scenario), "
+        f"steps per lane max {int(steps.max())} mean "
+        f"{float(steps.mean()):.1f}, {wall / float(steps.max()) * 1e6:.1f} us "
+        f"per step of the longest lane, card {card}")
+    log(f"[scenarios] champion per scenario "
+        f"{dict(zip(suite.names, [round(float(x), 6) for x in champ]))}; "
+        f"robust mean {robust['mean']:.6f} min {robust['min']:.6f} "
+        f"cvar-0.25 {robust['cvar']:.6f}")
+
+    want = {k: v[4] for k, v in result_fields(batched).items()}
+    t0 = time.perf_counter()
+    alone = make_suite_eval(suite, cfg=cfg, device=dev)(params[4])
+    torch.cuda.synchronize()
+    wall_alone = time.perf_counter() - t0
+    assert_result_matches(alone, want, rtol=0, atol=0)
+    i2 = suite.names.index("fault2")
+    w2 = suite.workloads[i2]
+    one = engine.make_population_run_fn(w2, parametric.score, cfg)(
+        params[4:5], engine.initial_state(w2, cfg))
+    assert_result_matches(one, {k: v[i2:i2 + 1] for k, v in want.items()},
+                          rtol=0, atol=0)
+    log(f"[scenarios] the champion alone on default8 ({len(suite)} lanes, "
+        f"{wall_alone:.3f} s) and on fault2 alone (1 lane) equal its batched "
+        f"results exactly")
+
+    t0 = time.perf_counter()
+    flat_res = make_suite_eval(suite, cfg=cfg, engine="flat",
+                               device=dev)(params[4])
+    torch.cuda.synchronize()
+    wall_flat = time.perf_counter() - t0
+    fscores = flat_res.policy_score
+    if not bool(torch.isfinite(fscores).all()):
+        raise AssertionError(f"bad flat default8 scores: {fscores}")
+    log(f"[scenarios] default8 flat, champion ({len(suite)} lanes): "
+        f"{wall_flat:.3f} s with the graph capture, events per lane max "
+        f"{int(flat_res.events_processed.max())}, scores "
+        f"{[round(float(x), 6) for x in fscores]}")
+
+    # the champion's decision trace on fault1: trace_diff replays the exact
+    # engine twice with the trace on, and its recorder keeps every row
+    i1 = suite.names.index("fault1")
+    w1 = suite.workloads[i1]
+    rec = RowRecorder()
+    t0 = time.perf_counter()
+    spec = ("exact", "exact", parametric.score, params[4])
+    record = tracing.trace_diff(w1, [spec, ("exact-again",) + spec[1:]],
+                                recorder=rec, max_trace_events=2**31,
+                                device=dev)
+    if record["divergent"]:
+        raise AssertionError(tracing.format_diff(record))
+    rows = rec.rows["exact"]
+    fault_rows = sum(r["kind"] in ("NODE_DOWN", "NODE_UP") for r in rows)
+    score = record["scores"]["exact"]
+    if score != float(alone.policy_score[i1]) \
+            or fault_rows != w1.faults.num_events \
+            or sum(r["kind"] == "NODE_DOWN" for r in rows) * 2 != fault_rows:
+        raise AssertionError(
+            f"traced fault1 run: score {score} (untraced "
+            f"{float(alone.policy_score[i1])}), {fault_rows} fault rows of "
+            f"{w1.faults.num_events}")
+    log(f"[scenarios] fault1 decision trace: {len(rows)} rows, "
+        f"{fault_rows} fault rows, score {score:.6f} == untraced; trace_diff "
+        f"exact vs exact: no divergence over {record['steps']['exact']} "
+        f"steps ({time.perf_counter() - t0:.1f} s for the two traced runs); "
+        f"phase {time.perf_counter() - t_phase:.1f} s")
+
+
+class RowRecorder:
+    """A recorder (``obs.recorder`` API) that keeps each replay's rows."""
+
+    def __init__(self):
+        self.rows = {}
+
+    def event(self, kind, **fields):
+        if kind == "decision_trace":
+            self.rows[fields["engine"]] = fields["events"]
+
+
 def main() -> int:
     if not (ROOT / "fks_tpu_torch" / "csrc" / "fused_sim.cu").is_file():
         raise SystemExit("chip_smoke.py must run from a checkout that holds "
@@ -239,7 +434,8 @@ def main() -> int:
     from fks_tpu_torch.testing import (
         contended_workload, roomy_workload, tied_workload,
     )
-    for name in ("golden_default.json", "golden_micro.json"):
+    for name in ("golden_default.json", "golden_micro.json",
+                 "golden_scenario_fault.json"):
         if not (ROOT / "tests" / "fixtures" / name).is_file():
             raise SystemExit(f"chip_smoke.py needs tests/fixtures/{name}")
 
@@ -394,7 +590,13 @@ def main() -> int:
     # ---- 6. the exact heap engine
     exact_phase(dev, wl, params, card)
 
-    # ---- 7. summary
+    # ---- 7. the policies on the card
+    zoo_phase(dev)
+
+    # ---- 8. scenario suites
+    scenario_phase(dev, wl, params, card)
+
+    # ---- 9. summary
     log(f"[card] {card}")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{

@@ -14,5 +14,7 @@ randomness. Entry points run on ``cuda`` unless the caller passes
 
 Ported so far: the parametric-population main path — trace ingest, the
 flat engine, the fused simulation kernel (``csrc/fused_sim.cu``),
-population fitness and single-device parametric evolution.
+population fitness and single-device parametric evolution; the exact heap
+engine; and robust fitness over scenario suites (``scenarios``,
+``parallel.traces``, the decision trace and ``obs.tracing``).
 """

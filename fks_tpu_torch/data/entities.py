@@ -9,13 +9,14 @@ fks_tpu's:
   ``pod_mask``;
 - resource quantities are int32, masks are bool.
 
-``FaultEvents`` (scenario fault timelines) waits for a later slice of the
-port; ``Workload.faults`` is kept so callers can see that it is unset.
+The size properties read the LAST axis, so they also hold for a stack of
+same-shape workloads (``parallel.traces.stack_traces``: every tensor with
+a leading trace axis ``T``).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Optional
 
 import torch
 
@@ -46,11 +47,11 @@ class ClusterArrays:
 
     @property
     def n_padded(self) -> int:
-        return int(self.cpu_total.shape[0])
+        return int(self.cpu_total.shape[-1])
 
     @property
     def g_padded(self) -> int:
-        return int(self.gpu_milli_total.shape[1])
+        return int(self.gpu_milli_total.shape[-1])
 
     @property
     def num_nodes(self) -> int:
@@ -86,7 +87,7 @@ class PodArrays:
 
     @property
     def p_padded(self) -> int:
-        return int(self.cpu.shape[0])
+        return int(self.cpu.shape[-1])
 
     @property
     def num_pods(self) -> int:
@@ -97,13 +98,40 @@ class PodArrays:
 
 
 @dataclasses.dataclass
+class FaultEvents:
+    """A node fault timeline (fks_tpu.data.entities.FaultEvents): one row
+    per NODE_DOWN / NODE_UP event, padded to ``F`` rows and masked like
+    every other axis. Both engines merge the rows into the event stream
+    ahead of equal-time pod events and flip a per-node availability bit: a
+    downed node is cordoned (scores 0 for new placements) until its
+    NODE_UP, and running pods are not evicted."""
+
+    time: torch.Tensor  # i32[F] event times (padding: INT32_MAX)
+    node: torch.Tensor  # i32[F] node index of the event (padding: 0)
+    kind: torch.Tensor  # i32[F] ops.heap.KIND_NODE_DOWN | KIND_NODE_UP
+    mask: torch.Tensor  # bool[F] real rows
+
+    @property
+    def f_padded(self) -> int:
+        return int(self.time.shape[-1])
+
+    @property
+    def num_events(self) -> int:
+        return int(self.mask.sum())
+
+    def to(self, device) -> "FaultEvents":
+        return _to(self, device)
+
+
+@dataclasses.dataclass
 class Workload:
-    """A (cluster, pods) pair — the unit of simulation input. ``faults``
-    stays None until scenario fault timelines are ported."""
+    """A (cluster, pods) pair — the unit of simulation input. ``faults`` is
+    None for a plain workload or the ``FaultEvents`` timeline of a
+    scenario variant (fks_tpu_torch.scenarios)."""
 
     cluster: ClusterArrays
     pods: PodArrays
-    faults: Any = None
+    faults: Optional[FaultEvents] = None
 
     @property
     def num_nodes(self) -> int:
@@ -118,5 +146,6 @@ class Workload:
         return self.cluster.cpu_total.device
 
     def to(self, device) -> "Workload":
-        return dataclasses.replace(self, cluster=self.cluster.to(device),
-                                   pods=self.pods.to(device))
+        return dataclasses.replace(
+            self, cluster=self.cluster.to(device), pods=self.pods.to(device),
+            faults=None if self.faults is None else self.faults.to(device))

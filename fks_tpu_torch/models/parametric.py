@@ -105,8 +105,9 @@ def _basis(pod: PodView, nodes: NodeView, dtype):
                        milli_tot], dim=-1).to(d)
     # denominators cpu, mem, gpus, cpu, mem, gpus, milli, gpus (slices, not
     # an index list: a host-made index cannot enter a captured CUDA graph)
-    q = num[..., :8] / torch.cat([den[:, 0:3], den[:, 0:3], den[:, 3:4],
-                                  den[:, 2:3]], dim=-1)  # [L, N, 8]
+    q = num[..., :8] / torch.cat([den[..., 0:3], den[..., 0:3],
+                                  den[..., 3:4], den[..., 2:3]],
+                                 dim=-1)  # [L, N, 8]
     # x / 1000.0 -> x * float32(1/1000), as XLA compiles it
     milli = num[..., 8:] * (_INV1000 if d == torch.float32 else 1 / 1000)
     rem_cpu, rem_mem, rem_gpu = q[..., 0], q[..., 1], q[..., 2]

@@ -244,7 +244,7 @@ def funsearch_4901(dtype=torch.float32) -> PolicyFn:
 
         free_milli = torch.where(gm, nodes.gpu_milli_left, 0).sum(
             dim=-1, dtype=torch.int32)
-        cap0 = nodes.gpu_milli_total[:, 0]  # node.gpus[0].gpu_milli_total
+        cap0 = nodes.gpu_milli_total[..., 0]  # node.gpus[0].gpu_milli_total
         den = (nodes.gpu_left * cap0).to(d)
         gpu_util = (den - free_milli.to(d)) / torch.where(den != 0, den, 1)
         gpu_score = torch.where(

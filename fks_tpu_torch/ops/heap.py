@@ -37,6 +37,13 @@ import torch
 
 KIND_CREATE = 0
 KIND_DELETE = 1
+# scenario fault events (fks_tpu_torch.scenarios): cordon / uncordon a
+# node. They ride the same heap with the node index in the pod column and a
+# negative rank, so at equal time they pop before every pod event; the
+# retry scan below matches KIND_DELETE only, so a fault never anchors a
+# retry
+KIND_NODE_DOWN = 2
+KIND_NODE_UP = 3
 
 # column indices of EventHeap.data
 COL_TIME, COL_RANK, COL_KIND, COL_POD = 0, 1, 2, 3

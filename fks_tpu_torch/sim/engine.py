@@ -21,37 +21,55 @@ folds the evaluator into the state, in every lane at once:
 - snapshot overshoot past 100% and a fragmentation event on every failed
   creation, as the flat engine.
 
+- scenario faults (``Workload.faults``) ride the heap as NODE_DOWN /
+  NODE_UP rows ahead of equal-time pod events; a fault step flips one
+  node's cordon bit (a cordoned node scores 0) and touches nothing else,
+  and it is not counted in ``events_processed``, snapshots or
+  ``max_nodes``;
+- ``SimConfig.decision_trace`` logs one ``TraceBuffer`` row per event.
+
 The step is self-masking (a finished lane is a no-op), makes no host sync
 and has no data-dependent shape, so one loop runs any number of lanes
 until none is active. On the CPU the loop runs eagerly; on CUDA it
 captures ``SYNC_EVERY`` steps in a CUDA graph at the first call and
 replays it, checking ``any(active)`` once per replay.
 
-Not ported yet (a ValueError names ROADMAP queue 1): fault timelines,
-``node_prefilter_k`` and its auto-prefilter helpers, ``decision_trace``
-and ``state_pack``. ``cond_policy`` is accepted and, as in fks_tpu,
-changes no result: the policy runs on every step.
+Lanes may run different workloads (``parallel.traces``): ``build_step``
+and ``finalize`` then take a stacked workload, every tensor with a
+leading trace axis ``[T, ...]``, and ``lane_trace`` i64[L], each lane's
+trace. The pod tables stay ``[T, P, ...]`` and are read at (trace, pod);
+the cluster tables stay ``[N]``-shaped when every trace has the same
+cluster and become ``[L, N]`` otherwise.
+
+Not ported yet (a ValueError names ROADMAP queue 1): ``node_prefilter_k``
+and its auto-prefilter helpers, and ``state_pack``. ``cond_policy`` is
+accepted and, as in fks_tpu, changes no result: the policy runs on every
+step.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Callable, Optional
 
+import numpy as np
 import torch
 
 from fks_tpu_torch.data.entities import ClusterArrays, PodArrays, Workload
 from fks_tpu_torch.device import resolve_device
 from fks_tpu_torch.ops.allocator import best_fit_gpus, first_fit_gpus
 from fks_tpu_torch.ops.heap import (
-    COL_KIND, COL_POD, KIND_CREATE, KIND_DELETE,
-    first_deletion_in_array_order, heap_from_events, heap_pop, heap_push,
+    COL_KIND, COL_POD, KIND_CREATE, KIND_DELETE, KIND_NODE_DOWN,
+    KIND_NODE_UP, first_deletion_in_array_order, heap_from_events, heap_pop,
+    heap_push,
 )
 from fks_tpu_torch.sim.evaluator import (
     max_snapshot_count, snapshot_trigger_table,
 )
 from fks_tpu_torch.sim.guards import fitness_flags, guard_scores
 from fks_tpu_torch.sim.types import (
-    NodeView, PodView, PolicyFn, SimResult, SimState,
+    TRACE_CREATE, TRACE_DELETE, TRACE_NODE_DOWN, TRACE_NODE_UP, TRACE_RETRY,
+    NodeView, PodView, PolicyFn, SimResult, SimState, TraceBuffer,
+    empty_trace, map_tensors,
 )
 
 #: steps between the host's checks that some lane is still active (one
@@ -59,16 +77,17 @@ from fks_tpu_torch.sim.types import (
 #: extra steps of the last round are no-ops
 SYNC_EVERY = 16
 
-_LATER = "a later slice of the port (ROADMAP queue 1)"
+_LATER = ("a later slice of the port (ROADMAP queue 1, next: "
+          "node_prefilter_k with the auto-prefilter, state_pack and "
+          "make_segmented_population_run)")
 
 
 @dataclasses.dataclass(frozen=True)
 class SimConfig:
     """Static simulation knobs (fks_tpu.sim.engine.SimConfig). The flags
-    the port does not implement yet (``decision_trace``,
-    ``node_prefilter_k``, ``state_pack``) are kept so that setting one
-    raises a ValueError that names the slice it waits for, instead of a
-    TypeError."""
+    the port does not implement yet (``node_prefilter_k``, ``state_pack``)
+    are kept so that setting one raises a ValueError that names the slice
+    it waits for, instead of a TypeError."""
 
     max_steps_factor: int = 8  # runaway guard: max events = factor * num_pods
     max_steps: Optional[int] = None  # overrides the factor when set
@@ -91,7 +110,10 @@ class SimConfig:
     # numerics watchdog (sim.guards): flag NaN/Inf policy scores per lane
     # (masking them to "refuse") and audit the final fitness
     watchdog: bool = False
+    # log one TraceBuffer row per processed event (fks_tpu_torch.obs.
+    # tracing reads it); off, the states' and results' trace is None
     decision_trace: bool = False
+    trace_len: Optional[int] = None  # trace rows; default resolve_max_steps
     # score a truncated prefix: the fitness gate drops "no pending events"
     # and "every pod assigned" (fks_tpu.funsearch.budget's probe rungs)
     probe_score: bool = False
@@ -103,14 +125,17 @@ class SimConfig:
             return self.max_steps
         return max(64, self.max_steps_factor * num_pods)
 
+    def resolve_trace_len(self, num_pods: int) -> int:
+        if self.trace_len is not None:
+            return self.trace_len
+        return self.resolve_max_steps(num_pods)
+
 
 def check_ported(workload: Workload, cfg: SimConfig) -> None:
     """Raise ValueError for an option the port does not implement yet (in
     either engine)."""
     pending = [
-        (workload.faults is not None, "fault-injected workloads"),
         (bool(cfg.node_prefilter_k), "node_prefilter_k"),
-        (cfg.decision_trace, "decision_trace"),
         (cfg.state_pack, "state_pack"),
     ]
     for on, name in pending:
@@ -158,12 +183,60 @@ def _node_view(c: ClusterArrays, cpu_left, mem_left, gpu_left,
 
 
 def _cluster_totals(c: ClusterArrays) -> torch.Tensor:
-    """i64[4] cluster-wide capacity (cpu, mem, GPU count, GPU milli),
-    computed on the device (no host sync)."""
+    """i64[4] cluster-wide capacity (cpu, mem, GPU count, GPU milli), or
+    i64[L, 4] for per-lane clusters, computed on the device (no host
+    sync)."""
     i64 = torch.int64
-    return torch.stack([c.cpu_total.sum(dtype=i64), c.mem_total.sum(dtype=i64),
-                        c.num_gpus.sum(dtype=i64),
-                        c.gpu_milli_total.sum(dtype=i64)])
+    return torch.stack([c.cpu_total.sum(dim=-1, dtype=i64),
+                        c.mem_total.sum(dim=-1, dtype=i64),
+                        c.num_gpus.sum(dim=-1, dtype=i64),
+                        c.gpu_milli_total.sum(dim=(-2, -1), dtype=i64)],
+                       dim=-1)
+
+
+# ---------------------------------------------- per-lane workload tables
+
+def lane_table(x: torch.Tensor, lane_trace) -> torch.Tensor:
+    """A stacked per-trace table ``[T, ...]`` as each lane's row ``[L,
+    ...]`` (``lane_trace`` i64[L]); a one-workload table as it is."""
+    return x if lane_trace is None else x[lane_trace]
+
+
+def lane_cluster(c: ClusterArrays, lane_trace) -> ClusterArrays:
+    """The cluster tables a step reads. One workload: as they are. Stacked
+    traces: one trace's ``[N]`` tables when every trace has the same
+    cluster (a scenario suite varies only pods and faults), else each
+    lane's own, ``[L, N]`` and ``[L, N, G]``. The comparison reads the
+    tables on the host once, when the step is built."""
+    if lane_trace is None:
+        return c
+    tabs = {f.name: getattr(c, f.name) for f in dataclasses.fields(c)
+            if isinstance(getattr(c, f.name), torch.Tensor)}
+    if all(bool((x == x[:1]).all()) for x in tabs.values()):
+        return dataclasses.replace(c, **{k: x[0] for k, x in tabs.items()})
+    return dataclasses.replace(c, **{k: x[lane_trace]
+                                     for k, x in tabs.items()})
+
+
+def _take(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``table`` at per-lane positions ``idx`` i64[L, k]: a shared table
+    ``[K]`` is indexed, a per-lane one ``[L, K]`` gathered. [L, k]."""
+    return table[idx] if table.dim() == 1 else table.gather(1, idx)
+
+
+def _pod_rows(table: torch.Tensor, pod: torch.Tensor, tix) -> torch.Tensor:
+    """Rows of a pod table ``[P, ...]`` at ``pod`` i64[L], or of a stacked
+    one ``[T, P, ...]`` at (lane's trace ``tix``, pod): no per-lane copy of
+    the table."""
+    return table[pod] if tix is None else table[tix, pod]
+
+
+def _node_rows(table: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The ``[N, G]`` (shared) or ``[L, N, G]`` (per-lane) table's row at
+    each lane's node ``w`` i64[L, 1]: [L, G]."""
+    if table.dim() == 2:
+        return table[w[:, 0]]
+    return table.gather(1, w[:, :, None].expand(-1, 1, table.shape[-1]))[:, 0]
 
 
 def _audit(c: ClusterArrays, p: PodArrays, active_pods, cpu_left, mem_left,
@@ -175,7 +248,7 @@ def _audit(c: ClusterArrays, p: PodArrays, active_pods, cpu_left, mem_left,
     are in the same pod order as ``assigned_*``. Returns i32[L], 1 where
     an invariant fails."""
     i64 = torch.int64
-    n, g = c.gpu_mask.shape
+    n, g = c.gpu_mask.shape[-2:]
     nm, gm = c.node_mask, c.gpu_mask
 
     def anyn(x):
@@ -201,7 +274,7 @@ def _audit(c: ClusterArrays, p: PodArrays, active_pods, cpu_left, mem_left,
                          != used_by_node(p.num_gpu))))
     g_iota = torch.arange(g, device=seg.device)
     bits = (assigned_gpus[..., None] >> g_iota) & 1  # [L, P, G]
-    contrib = torch.where(active[..., None], bits * p.gpu_milli[:, None], 0)
+    contrib = torch.where(active[..., None], bits * p.gpu_milli[..., None], 0)
     used_milli = torch.zeros((lanes, n, g), dtype=i64, device=seg.device)
     used_milli.scatter_add_(1, seg[..., None].expand(-1, -1, g), contrib)
     cons_g = anyn(gm & (c.gpu_milli_total - gpu_milli_left != used_milli))
@@ -229,15 +302,17 @@ class FinalView:
     failed: torch.Tensor
     violations: torch.Tensor  # i32[L]
     numeric_flags: torch.Tensor  # i32[L]
+    trace: Optional[TraceBuffer] = None
 
 
 def finalize_fields(workload: Workload, cfg: SimConfig, *, pending,
-                    s: FinalView) -> SimResult:
+                    s: FinalView, lane_trace=None) -> SimResult:
     """Fitness + results (reference evaluator.py:77-127) for L lanes.
-    ``pending`` is bool[L]: events remain unprocessed."""
+    ``pending`` is bool[L]: events remain unprocessed. ``lane_trace`` maps
+    lanes to the traces of a stacked workload (module docstring)."""
     f = cfg.score_dtype
     dev = s.snap_idx.device
-    pod_mask = workload.pods.pod_mask
+    pod_mask = lane_table(workload.pods.pod_mask, lane_trace)
     n_snap = s.snap_idx
     denom = n_snap.clamp(min=1).to(f)
     avg = s.snap_sums / denom[:, None]
@@ -272,8 +347,51 @@ def finalize_fields(workload: Workload, cfg: SimConfig, *, pending,
         cpu_left=s.cpu_left, mem_left=s.mem_left, gpu_left=s.gpu_left,
         gpu_milli_left=s.gpu_milli_left, failed=s.failed,
         truncated=truncated, invariant_violations=s.violations,
-        numeric_flags=numeric_flags,
+        numeric_flags=numeric_flags, trace=s.trace,
     )
+
+
+def trace_append(trace: TraceBuffer, *, active, create, is_del, was_waiting,
+                 pod, node, scores, winner, pending, cpu_left, mem_left,
+                 gpu_left, gpu_milli_left, fault_down=None,
+                 fault_up=None) -> TraceBuffer:
+    """Append one decision row per lane (fks_tpu.sim.engine._trace_append,
+    shared by both engines so the vocabulary cannot drift). Per-lane
+    arguments are [L] (``winner`` i64[L, 1], ``scores`` the masked policy
+    scores [L, N]). A lane that is inactive, or whose buffer is full,
+    writes the scratch row. Deletes and faults record score and margin 0;
+    fault rows (``fault_down`` / ``fault_up``) override the kind. Updates
+    the buffer's tensors in place."""
+    i32, i64 = torch.int32, torch.int64
+    tlen = trace.length
+    kind = torch.where(is_del, TRACE_DELETE,
+                       torch.where(was_waiting, TRACE_RETRY, TRACE_CREATE))
+    if fault_down is not None:
+        kind = torch.where(fault_down, TRACE_NODE_DOWN,
+                           torch.where(fault_up, TRACE_NODE_UP, kind))
+    row = torch.stack([
+        kind.to(i64), pod.to(i64), node.to(i64), pending.to(i64),
+        cpu_left.sum(dim=1, dtype=i64), mem_left.sum(dim=1, dtype=i64),
+        gpu_left.sum(dim=1, dtype=i64),
+        gpu_milli_left.sum(dim=(1, 2), dtype=i64)], dim=1).to(i32)
+    sdt = trace.scores.dtype
+    win = scores.gather(1, winner).to(sdt)[:, 0]
+    zero = torch.zeros((), dtype=sdt, device=win.device)
+    if scores.shape[1] > 1:
+        n_iota = torch.arange(scores.shape[1], device=win.device)
+        others = torch.where(n_iota == winner, float("-inf"),
+                             scores.to(sdt))
+        margin = win - others.amax(dim=1)
+    else:
+        margin = torch.zeros_like(win)
+    val = torch.stack([torch.where(create, win, zero),
+                       torch.where(create, margin, zero)], dim=1)
+    write = active & (trace.count < tlen)
+    idx = torch.where(write, trace.count, tlen).long()[:, None, None]
+    trace.data.scatter_(1, idx.expand(-1, 1, 8), row[:, None])
+    trace.scores.scatter_(1, idx.expand(-1, 1, 2), val[:, None])
+    return TraceBuffer(data=trace.data, scores=trace.scores,
+                       count=trace.count + write.to(i32))
 
 
 # ------------------------------------------------------- state plumbing
@@ -289,22 +407,32 @@ def _tensor_leaves(state):
             yield v
 
 
-def _map_tensors(fn, state):
-    kw = {}
-    for f in dataclasses.fields(state):
-        v = getattr(state, f.name)
-        if dataclasses.is_dataclass(v):
-            v = _map_tensors(fn, v)
-        elif isinstance(v, torch.Tensor):
-            v = fn(v)
-        kw[f.name] = v
-    return dataclasses.replace(state, **kw)
-
-
 def broadcast_state(state0, lanes: int):
     """``lanes`` independent copies of a one-lane state (any engine's)."""
-    return _map_tensors(
+    return map_tensors(
         lambda x: x.expand((lanes,) + tuple(x.shape[1:])).clone(), state0)
+
+
+def tile_state(state, reps: int):
+    """``reps`` copies of an L-lane state laid end to end: lane ``r * L +
+    l`` is a copy of lane ``l`` (the candidate-outer, trace-inner lane
+    order of ``parallel.traces``)."""
+    return map_tensors(
+        lambda x: x.repeat((reps,) + (1,) * (x.dim() - 1)), state)
+
+
+def zip_tensors(fn, objs):
+    """One dataclass shaped like ``objs[0]`` (all alike) whose every
+    tensor is ``fn`` of the list of the objects' tensors at that place."""
+    leaves = zip(*(list(_tensor_leaves(o)) for o in objs))
+    it = iter([fn(list(xs)) for xs in leaves])
+    return map_tensors(lambda _x: next(it), objs[0])
+
+
+def stack_states(states):
+    """One state whose lanes are the lanes of ``states`` in order (same
+    engine, same shapes)."""
+    return zip_tensors(torch.cat, states)
 
 
 def copy_state_(dst, src) -> None:
@@ -385,16 +513,31 @@ def initial_state(workload: Workload, cfg: SimConfig,
                   lanes: int = 1) -> SimState:
     """The t=0 state for ``lanes`` identical lanes on the workload's
     device. The initial heap layout comes from CPython ``heapq`` on the
-    host, so it is the reference's."""
+    host, so it is the reference's. Fault events ride the same heap: the
+    payload is the node index and the rank ``row - F_pad < 0``, so at
+    equal time every fault pops before every pod event (tie ranks are >=
+    0) and faults keep their array order (fks_tpu engine.py:167-181)."""
     check_ported(workload, cfg)
     c, p = workload.cluster, workload.pods
     dev = workload.device
     i32 = torch.int32
     pm = p.pod_mask.cpu().numpy()
-    heap = heap_from_events(
-        p.creation_time.cpu().numpy()[pm], p.tie_rank.cpu().numpy()[pm],
-        [KIND_CREATE] * int(pm.sum()), pm.nonzero()[0],
-        capacity=p.p_padded, device=dev)
+    times = p.creation_time.cpu().numpy()[pm]
+    ranks = p.tie_rank.cpu().numpy()[pm]
+    kinds = np.full(times.shape[0], KIND_CREATE, np.int32)
+    payload = pm.nonzero()[0]
+    capacity = p.p_padded
+    fe = workload.faults
+    if fe is not None:
+        fm = fe.mask.cpu().numpy()
+        fpad = fm.shape[0]
+        times = np.concatenate([times, fe.time.cpu().numpy()[fm]])
+        ranks = np.concatenate([ranks, fm.nonzero()[0] - fpad])
+        kinds = np.concatenate([kinds, fe.kind.cpu().numpy()[fm]])
+        payload = np.concatenate([payload, fe.node.cpu().numpy()[fm]])
+        capacity += fpad
+    heap = heap_from_events(times, ranks, kinds, payload, capacity=capacity,
+                            device=dev)
     pp = p.p_padded
     f = cfg.score_dtype
     pod_state = torch.stack([
@@ -418,7 +561,11 @@ def initial_state(workload: Workload, cfg: SimConfig,
         frag_count=zero.clone(), max_nodes=zero.clone(),
         failed=torch.zeros(1, dtype=torch.bool, device=dev),
         steps=zero.clone(), violations=zero.clone(),
-        numeric_flags=zero.clone())
+        numeric_flags=zero.clone(),
+        trace=(empty_trace(1, cfg.resolve_trace_len(workload.num_pods), f,
+                           dev) if cfg.decision_trace else None),
+        node_avail=(None if fe is None else torch.ones(
+            (1, c.n_padded), dtype=torch.bool, device=dev)))
     return state if lanes == 1 else broadcast_state(state, lanes)
 
 
@@ -429,14 +576,16 @@ def lane_active(s: SimState, max_steps: int) -> torch.Tensor:
 
 
 def build_step(workload: Workload, policy: PolicyFn, cfg: SimConfig,
-               ktable, max_steps: int) -> Callable[[SimState], SimState]:
+               ktable, max_steps: int,
+               lane_trace=None) -> Callable[[SimState], SimState]:
     """One event in every lane (module docstring).
     ``policy(PodView, NodeView) -> [L, N]`` scores all lanes at once; per-
-    lane scalars are ``[L, 1]`` columns. The cluster and pod tables enter
-    only through indexing and broadcasting, so they could carry a leading
-    lane axis (per-lane workloads) without changing the step's shape."""
+    lane scalars are ``[L, 1]`` columns. With ``lane_trace`` the workload
+    is a stack of traces and ``ktable`` their ``[T, K]`` snapshot tables
+    (``parallel.traces.stack_traces``)."""
     check_ported(workload, cfg)
-    c, p = workload.cluster, workload.pods
+    p = workload.pods
+    c = lane_cluster(workload.cluster, lane_trace)
     dev = workload.device
     i32, i64 = torch.int32, torch.int64
     g = c.g_padded
@@ -446,7 +595,7 @@ def build_step(workload: Workload, policy: PolicyFn, cfg: SimConfig,
     totals = _cluster_totals(c)
     denom = totals.clamp(min=1).to(f)
     no_total = totals <= 0
-    gm_total_pos = totals[3] > 0
+    gm_total_pos = totals[..., 3] > 0
     g_iota = torch.arange(g, dtype=i32, device=dev)
     g_pow = torch.ones((), dtype=i32, device=dev) << g_iota  # bit 31 < 0
     n_iota = torch.arange(c.n_padded, device=dev)
@@ -454,11 +603,18 @@ def build_step(workload: Workload, policy: PolicyFn, cfg: SimConfig,
     h_iota = torch.arange(nh, dtype=i32, device=dev)
     kinds = torch.tensor([KIND_CREATE, KIND_DELETE], dtype=i32, device=dev)
     signs = torch.tensor([0, 1, -1], dtype=i32, device=dev)
-    ktable = torch.as_tensor(ktable, dtype=i32, device=dev)
-    klen = int(ktable.shape[0])
+    ktable = lane_table(torch.as_tensor(ktable, dtype=i32, device=dev),
+                        lane_trace)
+    klen = int(ktable.shape[-1])
+    # [P, 5] (or [T, P, 5]), one row gather per event
     feat = torch.stack([p.cpu, p.mem, p.num_gpu, p.gpu_milli, p.duration],
-                       dim=-1).to(i32)  # [P, 5], one row gather per event
+                       dim=-1).to(i32)
+    tix = lane_trace
     pp = p.p_padded
+    if cfg.validate_invariants and lane_trace is not None:
+        p = dataclasses.replace(p, **{k: getattr(p, k)[lane_trace] for k in (
+            "cpu", "mem", "num_gpu", "gpu_milli")})
+    has_faults = workload.faults is not None
     f_zero = torch.zeros((), dtype=f, device=dev)
 
     def step(s: SimState) -> SimState:
@@ -466,33 +622,54 @@ def build_step(workload: Workload, policy: PolicyFn, cfg: SimConfig,
         act = lane_active(s, max_steps)
         heap, (t, rk, kind, pod) = heap_pop(s.heap, pred=act)
         is_del = (act & (kind == KIND_DELETE))[:, None]
-        create = (act & (kind != KIND_DELETE))[:, None]
         podl = pod.long()
-        pcpu, pmem, pngpu, pmilli, pdur = feat[podl].split(1, dim=1)
+        if has_faults:
+            # a fault's payload is a node index: flip that node's cordon
+            # bit and nothing else. Every pod-event update below is gated
+            # on is_del / create, so the pod row the fault's payload points
+            # at is read and written back unchanged (clamped: a node index
+            # may exceed the pod axis)
+            fault_down = act & (kind == KIND_NODE_DOWN)
+            fault_up = act & (kind == KIND_NODE_UP)
+            is_fault = fault_down | fault_up
+            create = (act & (kind == KIND_CREATE))[:, None]
+            podl = podl.clamp(max=pp - 1)
+            node_avail = torch.where(
+                n_iota == torch.where(is_fault, pod, c.n_padded)[:, None],
+                fault_up[:, None], s.node_avail)
+            # a cordoned node scores 0, "cannot/refuse", until its NODE_UP
+            place_mask = c.node_mask & node_avail
+        else:
+            create = (act & (kind != KIND_DELETE))[:, None]
+            node_avail, place_mask = s.node_avail, c.node_mask
+        pcpu, pmem, pngpu, pmilli, pdur = _pod_rows(feat, podl, tix).split(
+            1, dim=1)
         pod_idx = podl[:, None, None].expand(lanes, 1, 4)
         row = s.pod_state.gather(1, pod_idx)[:, 0]  # [L, 4]
         held_node, bits32, pod_ct, waited = row.split(1, dim=1)
         gpu_pod = pngpu > 0
 
         # ---- CREATION: score every node, strict argmax (main.py:101-111).
-        # A lane's event is a DELETE or a CREATE, and a DELETE's refund
-        # touches no CREATE lane, so the policy sees the pre-step cluster
+        # A lane's event is a DELETE, a CREATE or a fault, and a DELETE's
+        # refund touches no CREATE lane, so the policy sees the pre-step
+        # cluster
         nodes = _node_view(c, s.cpu_left, s.mem_left, s.gpu_left,
                            s.gpu_milli_left)
         raw = policy(PodView(pcpu, pmem, pngpu, pmilli, pod_ct, pdur), nodes)
         raw, numeric_flags = guard_scores(raw, create[:, 0], s.numeric_flags,
                                           enabled=cfg.watchdog)
-        scores = torch.where(c.node_mask, raw, 0)
+        scores = torch.where(place_mask, raw, 0)
         w = scores.argmax(dim=1, keepdim=True)  # first maximal index
         placed = create & (scores.gather(1, w) > 0)
         sel, ok = alloc(
             s.gpu_milli_left.gather(1, w[:, :, None].expand(-1, 1, g))[:, 0],
-            c.gpu_mask[w[:, 0]], pmilli[:, 0], pngpu[:, 0])
+            _node_rows(c.gpu_mask, w), pmilli[:, 0], pngpu[:, 0])
         alloc_fail = placed & gpu_pod & ~ok[:, None]  # reference raises
         pl = placed & ~alloc_fail
 
         # ---- one signed update: a DELETE refunds its held node and GPUs
-        # (main.py:74-99), a placement takes the winner's
+        # (main.py:74-99), a placement takes the winner's; a fault or an
+        # idle lane has sign 0
         sign = signs[(is_del + 2 * pl).long()]  # +1, -1 or 0 (exclusive)
         oh = torch.where(n_iota == torch.where(is_del, held_node, w), sign,
                          0)  # i32[L, N]
@@ -514,7 +691,8 @@ def build_step(workload: Workload, policy: PolicyFn, cfg: SimConfig,
                                 & (gml < min_needed[:, :, None]), gml, 0)
         frag_score = torch.where(
             (min_needed[:, 0] < nh) & gm_total_pos,
-            frag_free.sum(dim=(1, 2), dtype=i64).to(f) / denom[3], f_zero)
+            frag_free.sum(dim=(1, 2), dtype=i64).to(f) / denom[..., 3],
+            f_zero)
         frag_sum = s.frag_sum + torch.where(failp[:, 0], frag_score, f_zero)
         frag_count = s.frag_count + failp[:, 0].to(i32)
 
@@ -537,11 +715,15 @@ def build_step(workload: Workload, policy: PolicyFn, cfg: SimConfig,
         s.pod_state.scatter_(1, pod_idx, new_row[:, None, :])
 
         # ---- evaluator bookkeeping (main.py:63-72, evaluator.py:55-67);
-        # on alloc_fail the reference raises BEFORE record_event_processed
+        # on alloc_fail the reference raises BEFORE record_event_processed.
+        # Faults are control events: no events_processed, snapshot or
+        # max_nodes count
         valid = act & ~alloc_fail[:, 0]
+        if has_faults:
+            valid = valid & ~is_fault
         events = s.events_processed + valid.to(i32)
-        fire = valid & (s.snap_idx < klen) & (
-            events >= ktable[s.snap_idx.clamp(max=klen - 1).long()])
+        fire = valid & (s.snap_idx < klen) & (events >= _take(
+            ktable, s.snap_idx.clamp(max=klen - 1).long()[:, None])[:, 0])
         used = (totals - torch.stack([
             cpu_left.sum(dim=1, dtype=i64), mem_left.sum(dim=1, dtype=i64),
             gpu_left.sum(dim=1, dtype=i64),
@@ -566,6 +748,23 @@ def build_step(workload: Workload, policy: PolicyFn, cfg: SimConfig,
                 c, p, active_pods[:, :pp] > 0, cpu_left, mem_left, gpu_left,
                 gml, s.assigned_node, s.assigned_gpus)  # post-step rows
 
+        trace = s.trace
+        if cfg.decision_trace:
+            tpod = pod
+            tnode = torch.where(is_del, held_node,
+                                torch.where(pl, w.to(i32), -1))[:, 0]
+            fault_kw = {}
+            if has_faults:
+                tpod = torch.where(is_fault, -1, tpod)
+                tnode = torch.where(is_fault, pod, tnode)
+                fault_kw = dict(fault_down=fault_down, fault_up=fault_up)
+            trace = trace_append(
+                trace, active=act, create=create[:, 0], is_del=is_del[:, 0],
+                was_waiting=waited[:, 0] != 0, pod=tpod, node=tnode,
+                scores=scores, winner=w, pending=heap.size,
+                cpu_left=cpu_left, mem_left=mem_left, gpu_left=gpu_left,
+                gpu_milli_left=gml, **fault_kw)
+
         return SimState(
             heap=heap, cpu_left=cpu_left, mem_left=mem_left,
             gpu_left=gpu_left, gpu_milli_left=gml, pod_state=s.pod_state,
@@ -574,13 +773,15 @@ def build_step(workload: Workload, policy: PolicyFn, cfg: SimConfig,
             frag_sum=frag_sum, frag_count=frag_count, max_nodes=max_nodes,
             failed=s.failed | alloc_fail[:, 0],
             steps=s.steps + act.to(i32), violations=violations,
-            numeric_flags=numeric_flags)
+            numeric_flags=numeric_flags, trace=trace, node_avail=node_avail)
 
     return step
 
 
-def finalize(workload: Workload, cfg: SimConfig, s: SimState) -> SimResult:
-    """Fitness + results (reference evaluator.py:77-127)."""
+def finalize(workload: Workload, cfg: SimConfig, s: SimState,
+             lane_trace=None) -> SimResult:
+    """Fitness + results (reference evaluator.py:77-127). Unconsumed
+    faults still sit in the heap, so they count as pending events."""
     view = FinalView(
         assigned_node=s.assigned_node, assigned_gpus=s.assigned_gpus,
         pod_ctime=s.pod_ctime, cpu_left=s.cpu_left, mem_left=s.mem_left,
@@ -588,8 +789,10 @@ def finalize(workload: Workload, cfg: SimConfig, s: SimState) -> SimResult:
         events_processed=s.events_processed, snap_idx=s.snap_idx,
         snap_sums=s.snap_sums, frag_sum=s.frag_sum,
         frag_count=s.frag_count, max_nodes=s.max_nodes, failed=s.failed,
-        violations=s.violations, numeric_flags=s.numeric_flags)
-    return finalize_fields(workload, cfg, pending=s.heap.size > 0, s=view)
+        violations=s.violations, numeric_flags=s.numeric_flags,
+        trace=s.trace)
+    return finalize_fields(workload, cfg, pending=s.heap.size > 0, s=view,
+                           lane_trace=lane_trace)
 
 
 def make_param_run_fn(workload: Workload, param_policy,
@@ -648,7 +851,7 @@ def make_population_run_fn(workload: Workload, param_policy,
         else:
             chunk.step.params.copy_(params)
             copy_state_(chunk.state, broadcast_state(state0, pop))
-        return _map_tensors(torch.clone,
+        return map_tensors(torch.clone,
                             finalize(workload, cfg, chunk.run()))
 
     run.graphs = graphs

@@ -18,12 +18,22 @@ is dropped when no DELETE is pending (fks_tpu.sim.flat docstring: the
 engine's defined retry rule). The step is self-masking: a finished lane
 is a no-op, so one host loop drives all lanes until none is active.
 
-The step updates the queue tensors (``ev_time``, ``aux``, ``aux_gpus``,
-``pod_ctime``, ``wait_hist``) in place instead of copying them per event.
+Scenario faults (``Workload.faults``) sit in a queue of their own,
+``fault_time[L, F]``: the earliest unconsumed fault wins against pod
+events at equal time (the exact engine gives faults negative ranks), and
+among equal-time faults the first index wins, their heap rank order. A
+fault step flips one node's cordon bit and nothing else. The decision
+trace (``SimConfig.decision_trace``) records input-order pod ids, so its
+rows align with the exact engine's. Lanes may run different workloads, as
+in the exact engine (``engine`` module docstring); the slot order is then
+each trace's own.
 
-Not ported yet (a ValueError names the slice): fault timelines,
-``node_prefilter_k``, ``state_pack``, ``decision_trace`` and the segmented
-runner.
+The step updates the queue tensors (``ev_time``, ``aux``, ``aux_gpus``,
+``pod_ctime``, ``wait_hist``, ``fault_time``, the trace) in place instead
+of copying them per event.
+
+Not ported yet (a ValueError names the slice): ``node_prefilter_k``,
+``state_pack`` and the segmented runner.
 """
 from __future__ import annotations
 
@@ -35,12 +45,17 @@ import torch
 from fks_tpu_torch.data.entities import Workload
 from fks_tpu_torch.device import resolve_device
 from fks_tpu_torch.ops.allocator import best_fit_gpus, first_fit_gpus
+from fks_tpu_torch.ops.heap import KIND_NODE_UP
 from fks_tpu_torch.sim.engine import (
-    FinalView, SimConfig, _audit, _node_view, broadcast_state, check_ported,
-    finalize_fields, hist_size, loop_tables, run_batched_lanes,
+    FinalView, SimConfig, _audit, _cluster_totals, _node_rows, _node_view,
+    _pod_rows, _take, broadcast_state, check_ported, finalize_fields,
+    hist_size, lane_cluster, lane_table, loop_tables, run_batched_lanes,
+    trace_append,
 )
 from fks_tpu_torch.sim.guards import guard_scores
-from fks_tpu_torch.sim.types import FlatState, PodView, PolicyFn, SimResult
+from fks_tpu_torch.sim.types import (
+    FlatState, PodView, PolicyFn, SimResult, empty_trace,
+)
 
 INF = 2**31 - 1  # empty-slot sentinel (int32 max)
 
@@ -64,7 +79,8 @@ def runs_every_branch(device: torch.device) -> bool:
 
 
 def rank_perm(pod_mask: torch.Tensor, tie_rank: torch.Tensor) -> torch.Tensor:
-    """Slot order: real pods by ascending tie_rank, padding last (stable)."""
+    """Slot order: real pods by ascending tie_rank, padding last (stable);
+    along the last axis, so a stack of traces gets one order per trace."""
     key = torch.where(pod_mask, tie_rank.to(torch.int64), INF)
     return torch.sort(key, stable=True).indices
 
@@ -74,7 +90,7 @@ def initial_state(workload: Workload, cfg: SimConfig,
     """t=0 carry for ``lanes`` identical lanes on the workload's device:
     every real pod's slot (tie-rank order) holds its CREATE time."""
     check_ported(workload, cfg)
-    c, p = workload.cluster, workload.pods
+    c, p, fe = workload.cluster, workload.pods, workload.faults
     dev = workload.device
     i32 = torch.int32
     perm = rank_perm(p.pod_mask, p.tie_rank)
@@ -107,19 +123,32 @@ def initial_state(workload: Workload, cfg: SimConfig,
         failed=torch.zeros(lanes, dtype=torch.bool, device=dev),
         steps=zeros.clone(), violations=zeros.clone(),
         numeric_flags=zeros.clone(),
+        trace=(empty_trace(lanes, cfg.resolve_trace_len(workload.num_pods),
+                           f, dev) if cfg.decision_trace else None),
+        fault_time=None if fe is None else lane(
+            torch.where(fe.mask, fe.time, INF).to(i32)),
+        node_avail=None if fe is None else torch.ones(
+            (lanes, c.n_padded), dtype=torch.bool, device=dev),
     )
 
 
 def lane_active(s: FlatState, max_steps: int) -> torch.Tensor:
     """bool[L] termination predicate — the loop condition and the step's
-    self-mask, so the two cannot diverge."""
-    return (s.pending > 0) & ~s.failed & (s.steps < max_steps)
+    self-mask, so the two cannot diverge. Unconsumed faults keep a lane
+    live, as they would still sit in the exact engine's heap, so trailing
+    NODE_UP events drain in both engines."""
+    live = s.pending > 0
+    if s.fault_time is not None:
+        live = live | (s.fault_time.amin(dim=1) < INF)
+    return live & ~s.failed & (s.steps < max_steps)
 
 
 def build_step(workload: Workload, policy: PolicyFn, cfg: SimConfig,
-               ktable, max_steps: int) -> Callable[[FlatState], FlatState]:
+               ktable, max_steps: int,
+               lane_trace=None) -> Callable[[FlatState], FlatState]:
     """One event in every lane. ``policy(PodView, NodeView) -> i32[L, N]``
-    scores all lanes at once.
+    scores all lanes at once. With ``lane_trace`` the workload is a stack
+    of traces and ``ktable`` their ``[T, K]`` snapshot tables.
 
     Per-lane scalars are ``[L, 1]`` columns inside the step. On the CPU,
     work that only some events need (refunds, scoring, GPU picks,
@@ -128,7 +157,8 @@ def build_step(workload: Workload, policy: PolicyFn, cfg: SimConfig,
     result. On CUDA every branch runs, so the step never waits for the
     card to answer "does any lane need it"."""
     check_ported(workload, cfg)
-    c, p = workload.cluster, workload.pods
+    p = workload.pods
+    c = lane_cluster(workload.cluster, lane_trace)
     dev = workload.device
     i32, i64 = torch.int32, torch.int64
     n, g = c.n_padded, c.g_padded
@@ -136,26 +166,34 @@ def build_step(workload: Workload, policy: PolicyFn, cfg: SimConfig,
     alloc = (best_fit_gpus if cfg.gpu_allocator == "best_fit"
              else first_fit_gpus)
     packed = _packable(n, g)
-    tot = [int(c.cpu_total.sum()), int(c.mem_total.sum()),
-           int(c.num_gpus.sum()), int(c.gpu_milli_total.sum())]
-    totals = torch.tensor(tot, dtype=i64, device=dev)
+    totals = _cluster_totals(c)
     denom = totals.clamp(min=1).to(f)
     zero_f = torch.zeros((), dtype=f, device=dev)
     g_iota = torch.arange(g, dtype=i64, device=dev)
     g_pow = torch.ones((), dtype=i64, device=dev) << g_iota
     n_iota = torch.arange(n, dtype=i32, device=dev)
-    node_mask = c.node_mask.to(i32)
-    ktable = torch.as_tensor(ktable, dtype=i32, device=dev)
-    klen = int(ktable.shape[0])
+    ktable = lane_table(torch.as_tensor(ktable, dtype=i32, device=dev),
+                        lane_trace)
+    klen = int(ktable.shape[-1])
+    tix = lane_trace
 
     # pod features permuted into slot (tie-rank) order: one row per pod
-    perm = rank_perm(p.pod_mask, p.tie_rank)
-    feat = torch.stack([p.cpu, p.mem, p.num_gpu, p.gpu_milli, p.duration],
-                       dim=-1)[perm].to(i32)  # [Q, 5]
+    perm = rank_perm(p.pod_mask, p.tie_rank)  # [Q], or [T, Q]
+
+    def slot_order(x):
+        return x.gather(-1, perm)
+
+    feat = torch.stack([slot_order(x) for x in (
+        p.cpu, p.mem, p.num_gpu, p.gpu_milli, p.duration)],
+        dim=-1).to(i32)  # [Q, 5], or [T, Q, 5]
     if cfg.validate_invariants:  # the audit's pods, in slot order
-        p_slot = dataclasses.replace(
-            p, cpu=p.cpu[perm], mem=p.mem[perm], num_gpu=p.num_gpu[perm],
-            gpu_milli=p.gpu_milli[perm])
+        p_slot = dataclasses.replace(p, **{
+            k: lane_table(slot_order(getattr(p, k)), lane_trace)
+            for k in ("cpu", "mem", "num_gpu", "gpu_milli")})
+    has_faults = workload.faults is not None
+    if has_faults:
+        flt_node = lane_table(workload.faults.node.long(), lane_trace)
+        flt_up = lane_table(workload.faults.kind == KIND_NODE_UP, lane_trace)
 
     every = runs_every_branch(dev)
 
@@ -170,22 +208,38 @@ def build_step(workload: Workload, policy: PolicyFn, cfg: SimConfig,
         # ---- pop: lexicographic (time, slot) minimum; torch.min returns
         # the first index among equal minima
         t, col = torch.min(s.ev_time, dim=1, keepdim=True)
-        pcpu, pmem, pngpu, pmilli, pdur = feat[col[:, 0]].split(1, dim=1)
+        node_avail, place_mask = s.node_avail, c.node_mask
+        if has_faults:
+            # the earliest unconsumed fault wins ties against equal-time
+            # pod events; among equal-time faults the first index wins
+            ft, fidx = torch.min(s.fault_time, dim=1, keepdim=True)
+            take_fault = act & (ft <= t)
+            fault_node = _take(flt_node, fidx)
+            fault_is_up = _take(flt_up, fidx)
+            pod_act = act & ~take_fault
+            s.fault_time.scatter_(1, fidx, torch.where(take_fault, INF, ft))
+            node_avail = torch.where((n_iota == fault_node) & take_fault,
+                                     fault_is_up, node_avail)
+            # a cordoned node scores 0, "cannot/refuse", until its NODE_UP
+            place_mask = place_mask & node_avail
+        else:
+            pod_act = act
+        pcpu, pmem, pngpu, pmilli, pdur = _pod_rows(
+            feat, col[:, 0], tix).split(1, dim=1)
         aux_s = s.aux.gather(1, col)
-        is_del = act & (aux_s >= 0)
-        create = act & (aux_s < 0)
+        is_del = pod_act & (aux_s >= 0)
+        create = pod_act & (aux_s < 0)
         was_waiting = aux_s == AUX_WAITING
         gpu_pod = pngpu > 0
+        held_node = aux_s >> g if packed else aux_s
 
         # ---- DELETION: refund the held node and GPUs
         cpu_left, mem_left = s.cpu_left, s.mem_left
         gpu_left, gml = s.gpu_left, s.gpu_milli_left
         if needed(is_del):
             if packed:
-                held_node = aux_s >> g
                 held_bits = (aux_s & ((1 << g) - 1)).to(i64)
             else:
-                held_node = aux_s
                 held_bits = s.aux_gpus.gather(1, col)
             oh_a = ((n_iota == held_node) & is_del).to(i32)  # [L, N]
             cpu_left = cpu_left + oh_a * pcpu
@@ -198,6 +252,7 @@ def build_step(workload: Workload, policy: PolicyFn, cfg: SimConfig,
         # ---- CREATION: strict argmax placement, ties to the lowest node
         placed = pl = alloc_fail = no
         w = torch.zeros((lanes, 1), dtype=torch.int64, device=dev)
+        scores = torch.zeros((lanes, n), dtype=i32, device=dev)
         new_bits = torch.zeros((lanes, 1), dtype=i64, device=dev)
         numeric_flags = s.numeric_flags
         if needed(create):
@@ -206,12 +261,12 @@ def build_step(workload: Workload, policy: PolicyFn, cfg: SimConfig,
             raw, numeric_flags = guard_scores(
                 policy(pod, nodes), create[:, 0], numeric_flags,
                 enabled=cfg.watchdog)
-            scores = torch.where(c.node_mask, raw, 0)
+            scores = torch.where(place_mask, raw, 0)
             w = scores.argmax(dim=1, keepdim=True)  # first maximal index
             placed = create & (scores.gather(1, w) > 0)
         if needed(placed):
             rows = torch.arange(lanes, device=dev)
-            sel, ok = alloc(gml[rows, w[:, 0]], c.gpu_mask[w[:, 0]],
+            sel, ok = alloc(gml[rows, w[:, 0]], _node_rows(c.gpu_mask, w),
                             pmilli[:, 0], pngpu[:, 0])
             alloc_fail = placed & gpu_pod & ~ok[:, None]  # reference raises
             pl = placed & ~alloc_fail
@@ -241,8 +296,8 @@ def build_step(workload: Workload, policy: PolicyFn, cfg: SimConfig,
             frag_free = gml * (c.gpu_mask & (gml > 0)
                                & (gml < min_needed[:, None, None]))
             frag_score = torch.where(
-                has_w & (tot[3] > 0),
-                frag_free.sum(dim=(1, 2)).to(f) / denom[3], zero_f)
+                has_w & (totals[..., 3] > 0),
+                frag_free.sum(dim=(1, 2)).to(f) / denom[..., 3], zero_f)
             frag_sum = frag_sum + torch.where(failp[:, 0], frag_score, zero_f)
             # retry at 1 + the earliest pending DELETE (queue not yet
             # rewritten this step), or drop when none is pending
@@ -252,12 +307,13 @@ def build_step(workload: Workload, policy: PolicyFn, cfg: SimConfig,
             retry, dropped = failp & found, failp & ~found
             rt = next_del + 1
 
-        # ---- slot rewrite (active lanes only; the slot held time t)
+        # ---- slot rewrite (lanes that popped a pod event only; the slot
+        # held time t)
         new_t = torch.where(pl, t + pdur, torch.where(retry, rt, INF))
         enc = (w.to(i32) << g) | new_bits.to(i32) if packed else w.to(i32)
         new_aux = torch.where(pl, enc, torch.where(failp, AUX_WAITING, aux_s))
-        s.ev_time.scatter_(1, col, torch.where(act, new_t, t))
-        s.aux.scatter_(1, col, torch.where(act, new_aux, aux_s))
+        s.ev_time.scatter_(1, col, torch.where(pod_act, new_t, t))
+        s.aux.scatter_(1, col, torch.where(pod_act, new_aux, aux_s))
         if not packed:
             s.aux_gpus.scatter_(1, col, torch.where(
                 pl, new_bits, s.aux_gpus.gather(1, col)))
@@ -266,18 +322,19 @@ def build_step(workload: Workload, policy: PolicyFn, cfg: SimConfig,
                 retry, rt, s.pod_ctime.gather(1, col)))
         pending = s.pending - (is_del | dropped)[:, 0].to(i32)
 
-        # ---- evaluator bookkeeping
-        valid = (act & ~alloc_fail)[:, 0]
+        # ---- evaluator bookkeeping; a fault step is a control event, not
+        # counted (pod_act excludes it)
+        valid = (pod_act & ~alloc_fail)[:, 0]
         events = s.events_processed + valid.to(i32)
-        fire = valid & (s.snap_idx < klen) & (
-            events >= ktable[s.snap_idx.clamp(max=klen - 1)])
+        fire = valid & (s.snap_idx < klen) & (events >= _take(
+            ktable, s.snap_idx.clamp(max=klen - 1).long()[:, None])[:, 0])
         snap_sums, snap_idx = s.snap_sums, s.snap_idx
         if needed(fire):
             used = torch.stack([
-                totals[0] - cpu_left.sum(dim=1, dtype=i64),
-                totals[1] - mem_left.sum(dim=1, dtype=i64),
+                totals[..., 0] - cpu_left.sum(dim=1, dtype=i64),
+                totals[..., 1] - mem_left.sum(dim=1, dtype=i64),
                 (c.num_gpus - gpu_left).sum(dim=1, dtype=i64),
-                totals[3] - gml.sum(dim=(1, 2), dtype=i64),
+                totals[..., 3] - gml.sum(dim=(1, 2), dtype=i64),
             ], dim=1).to(f)
             utils = torch.where(totals <= 0, zero_f, used / denom)
             snap_sums = snap_sums + torch.where(fire[:, None], utils, zero_f)
@@ -294,6 +351,31 @@ def build_step(workload: Workload, policy: PolicyFn, cfg: SimConfig,
                 c, p_slot, (s.aux >= 0) & (s.ev_time < INF), cpu_left,
                 mem_left, gpu_left, gml, an, ag)
 
+        trace = s.trace
+        if cfg.decision_trace:
+            # input-order pod ids (perm[slot]), so rows align with the
+            # exact engine's; pending counts unconsumed faults too, like
+            # the exact engine's heap size
+            tpod = _pod_rows(perm, col[:, 0], tix)
+            tnode = torch.where(is_del, held_node,
+                                torch.where(pl, w.to(i32), -1))[:, 0]
+            trace_pending = pending
+            fault_kw = {}
+            if has_faults:
+                tpod = torch.where(take_fault[:, 0], -1, tpod)
+                tnode = torch.where(take_fault[:, 0], fault_node[:, 0],
+                                    tnode)
+                trace_pending = pending + (s.fault_time < INF).sum(
+                    dim=1, dtype=i32)
+                fault_kw = dict(fault_down=(take_fault & ~fault_is_up)[:, 0],
+                                fault_up=(take_fault & fault_is_up)[:, 0])
+            trace = trace_append(
+                trace, active=act[:, 0], create=create[:, 0],
+                is_del=is_del[:, 0], was_waiting=was_waiting[:, 0],
+                pod=tpod, node=tnode, scores=scores, winner=w,
+                pending=trace_pending, cpu_left=cpu_left, mem_left=mem_left,
+                gpu_left=gpu_left, gpu_milli_left=gml, **fault_kw)
+
         return dataclasses.replace(
             s, pending=pending, cpu_left=cpu_left, mem_left=mem_left,
             gpu_left=gpu_left, gpu_milli_left=gml, events_processed=events,
@@ -301,7 +383,7 @@ def build_step(workload: Workload, policy: PolicyFn, cfg: SimConfig,
             frag_count=s.frag_count + failp[:, 0].to(i32),
             max_nodes=max_nodes, failed=s.failed | alloc_fail[:, 0],
             steps=s.steps + act[:, 0].to(i32), violations=violations,
-            numeric_flags=numeric_flags)
+            numeric_flags=numeric_flags, trace=trace, node_avail=node_avail)
 
     return step
 
@@ -326,21 +408,31 @@ def decode_assignment(aux, aux_gpus, g: int, packed: bool):
     return an.to(torch.int32), ag
 
 
-def finalize(workload: Workload, cfg: SimConfig, s: FlatState) -> SimResult:
+def finalize(workload: Workload, cfg: SimConfig, s: FlatState,
+             lane_trace=None) -> SimResult:
+    """Fitness + results with per-pod arrays back in input order.
+    Unconsumed faults count as pending events, as in the exact engine."""
     c, p = workload.cluster, workload.pods
-    inv = torch.argsort(rank_perm(p.pod_mask, p.tie_rank))
+    # each lane's slot of every input-order pod
+    inv = lane_table(torch.argsort(rank_perm(p.pod_mask, p.tie_rank)),
+                     lane_trace).expand(s.lanes, -1)
     an, ag = decode_assignment(s.aux, s.aux_gpus, c.g_padded,
                                _packable(c.n_padded, c.g_padded))
     view = FinalView(
-        assigned_node=an[:, inv], assigned_gpus=ag[:, inv],
-        pod_ctime=s.pod_ctime[:, inv], cpu_left=s.cpu_left,
+        assigned_node=an.gather(1, inv), assigned_gpus=ag.gather(1, inv),
+        pod_ctime=s.pod_ctime.gather(1, inv), cpu_left=s.cpu_left,
         mem_left=s.mem_left, gpu_left=s.gpu_left,
         gpu_milli_left=s.gpu_milli_left,
         events_processed=s.events_processed, snap_idx=s.snap_idx,
         snap_sums=s.snap_sums, frag_sum=s.frag_sum,
         frag_count=s.frag_count, max_nodes=s.max_nodes, failed=s.failed,
-        violations=s.violations, numeric_flags=s.numeric_flags)
-    return finalize_fields(workload, cfg, pending=s.pending > 0, s=view)
+        violations=s.violations, numeric_flags=s.numeric_flags,
+        trace=s.trace)
+    pending = s.pending > 0
+    if s.fault_time is not None:
+        pending = pending | (s.fault_time.amin(dim=1) < INF)
+    return finalize_fields(workload, cfg, pending=pending, s=view,
+                           lane_trace=lane_trace)
 
 
 def make_param_run_fn(workload: Workload, param_policy,

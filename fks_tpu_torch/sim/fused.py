@@ -99,13 +99,16 @@ def _build_plan(workload: Workload, cfg: SimConfig,
                          "kernel; use engine='flat'")
     if cfg.decision_trace:
         raise ValueError("decision trace is not supported in the fused "
-                         "kernel")
+                         "kernel; replay with engine='exact' or 'flat' "
+                         "(fks_tpu_torch.obs.tracing)")
     if cfg.probe_score:
         raise ValueError("budget probe rungs (SimConfig.probe_score) are "
                          "not supported in the fused kernel")
     if workload.faults is not None:
-        raise ValueError("fault-injected workloads are not supported in the "
-                         "fused kernel")
+        raise ValueError("fault-injected workloads (fks_tpu_torch.scenarios "
+                         "NODE_DOWN/NODE_UP events) are not supported in "
+                         "the fused kernel; evaluate scenario suites with "
+                         "engine='exact' or 'flat'")
     if cfg.node_prefilter_k:
         raise ValueError("top-k node prefiltering (SimConfig."
                          "node_prefilter_k) is not supported in the fused "

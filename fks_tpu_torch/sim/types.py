@@ -7,11 +7,12 @@ port writes the lane axis out: every per-lane quantity carries a leading
 - ``PodView`` fields are ``[L, 1]`` columns, so they broadcast against
   ``[L, N]`` node arrays (``[..., None]`` adds the GPU axis).
 - ``NodeView`` "left" fields are per lane (``[L, N]``, ``[L, N, G]``);
-  capacity fields are shared by all lanes (``[N]``, ``[N, G]``).
+  capacity fields are shared by all lanes (``[N]``, ``[N, G]``), or per
+  lane (``[L, N]``, ``[L, N, G]``) when stacked traces with different
+  clusters share one step (``parallel.traces``).
 
 A policy scores one pod against every node of every lane:
 ``policy(PodView, NodeView) -> i32[L, N]``; 0 means "cannot/refuse".
-``TraceBuffer`` (the decision trace) waits for a later slice.
 """
 from __future__ import annotations
 
@@ -35,22 +36,79 @@ class PodView(NamedTuple):
 
 
 class NodeView(NamedTuple):
-    """Per-node state: ``*_left`` per lane, totals and masks shared."""
+    """Per-node state: ``*_left`` per lane; totals and masks shared, or
+    with a leading lane axis when the lanes' clusters differ."""
 
     cpu_milli_left: torch.Tensor  # i32[L, N]
-    cpu_milli_total: torch.Tensor  # i32[N]
+    cpu_milli_total: torch.Tensor  # i32[N] or [L, N]
     memory_mib_left: torch.Tensor  # i32[L, N]
-    memory_mib_total: torch.Tensor  # i32[N]
+    memory_mib_total: torch.Tensor  # i32[N] or [L, N]
     gpu_left: torch.Tensor  # i32[L, N] (starts at the declared count)
-    num_gpus: torch.Tensor  # i32[N]
+    num_gpus: torch.Tensor  # i32[N] or [L, N]
     gpu_milli_left: torch.Tensor  # i32[L, N, G]
-    gpu_milli_total: torch.Tensor  # i32[N, G]
-    gpu_mem_total: torch.Tensor  # i32[N, G]
-    gpu_mask: torch.Tensor  # bool[N, G]
-    node_mask: torch.Tensor  # bool[N]
+    gpu_milli_total: torch.Tensor  # i32[N, G] or [L, N, G]
+    gpu_mem_total: torch.Tensor  # i32[N, G] or [L, N, G]
+    gpu_mask: torch.Tensor  # bool[N, G] or [L, N, G]
+    node_mask: torch.Tensor  # bool[N] or [L, N]
 
 
 PolicyFn = Callable[[PodView, NodeView], torch.Tensor]  # -> i32[L, N]
+
+
+# decision-trace event kinds (TraceBuffer.COL_KIND). RETRY is a creation
+# attempt of a pod that already failed at least once; NODE_DOWN / NODE_UP
+# are scenario fault events (pod column -1, node column the node, score
+# and margin 0)
+TRACE_CREATE = 0
+TRACE_DELETE = 1
+TRACE_RETRY = 2
+TRACE_NODE_DOWN = 3
+TRACE_NODE_UP = 4
+TRACE_KIND_NAMES = ("CREATE", "DELETE", "RETRY", "NODE_DOWN", "NODE_UP")
+
+
+@dataclasses.dataclass
+class TraceBuffer:
+    """The decision trace of L lanes (``SimConfig.decision_trace``;
+    fks_tpu.sim.types.TraceBuffer with the lane axis written out): one row
+    per processed event, in step order. Integer observables are the
+    columns of ``data``, the winning score and the second-best margin are
+    ``scores`` in the score dtype. Rows are comparable across engines: pod
+    ids are input order (the flat engine un-permutes its slots) and
+    deletes record score and margin 0.
+
+    Row ``T`` is a scratch row, as the heap's row ``cap``: PyTorch has no
+    drop-mode scatter, so an inactive lane or a full buffer writes there,
+    and no reader counts it. ``count`` saturates at ``T``."""
+
+    data: torch.Tensor  # i32[L, T + 1, 8], columns below
+    scores: torch.Tensor  # f[L, T + 1, 2]: (winning score, margin)
+    count: torch.Tensor  # i32[L] rows written
+
+    COL_KIND = 0  # TRACE_*
+    COL_POD = 1  # input-order pod id (-1 on fault rows)
+    COL_NODE = 2  # chosen node (-1 = none); held node on DELETE
+    COL_PENDING = 3  # post-step pending event count (faults included)
+    COL_FREE_CPU = 4  # post-step cluster-wide free aggregates
+    COL_FREE_MEM = 5
+    COL_FREE_GPU = 6
+    COL_FREE_GPU_MILLI = 7
+
+    @property
+    def length(self) -> int:
+        """``T``, the rows a lane can hold."""
+        return int(self.data.shape[-2]) - 1
+
+
+def empty_trace(lanes: int, length: int, score_dtype=torch.float32,
+                device="cpu") -> TraceBuffer:
+    """An all-zero ``TraceBuffer`` of ``lanes`` lanes x ``length`` rows."""
+    return TraceBuffer(
+        data=torch.zeros((lanes, length + 1, 8), dtype=torch.int32,
+                         device=device),
+        scores=torch.zeros((lanes, length + 1, 2), dtype=score_dtype,
+                           device=device),
+        count=torch.zeros(lanes, dtype=torch.int32, device=device))
 
 
 @dataclasses.dataclass
@@ -83,6 +141,11 @@ class FlatState:
     steps: torch.Tensor  # i32[L]
     violations: torch.Tensor  # i32[L] invariant-audit failures
     numeric_flags: torch.Tensor  # i32[L] watchdog bitmask (sim.guards)
+    trace: Optional[TraceBuffer] = None  # unless SimConfig.decision_trace
+    # the fault queue, unless the workload carries FaultEvents: each
+    # event's time, INF once consumed; and each node's cordon bit
+    fault_time: Optional[torch.Tensor] = None  # i32[L, F]
+    node_avail: Optional[torch.Tensor] = None  # bool[L, N]
 
     @property
     def lanes(self) -> int:
@@ -118,6 +181,9 @@ class SimState:
     steps: torch.Tensor  # i32[L]
     violations: torch.Tensor  # i32[L] invariant-audit failures
     numeric_flags: torch.Tensor  # i32[L] watchdog bitmask (sim.guards)
+    trace: Optional[TraceBuffer] = None  # unless SimConfig.decision_trace
+    # each node's cordon bit, unless the workload carries FaultEvents
+    node_avail: Optional[torch.Tensor] = None  # bool[L, N]
 
     # pod_state column indices
     COL_NODE = 0
@@ -175,8 +241,22 @@ class SimResult:
     invariant_violations: torch.Tensor  # i32[L] (0 unless validate_invariants)
     # i32[L] watchdog bitmask (sim.guards.FLAG_*; 0 unless SimConfig.watchdog)
     numeric_flags: torch.Tensor
+    trace: Optional[TraceBuffer] = None  # unless SimConfig.decision_trace
 
     def lane(self, i: int) -> "SimResult":
         """The result of lane ``i`` alone (leading axis dropped)."""
-        return SimResult(**{f.name: getattr(self, f.name)[i]
-                            for f in dataclasses.fields(self)})
+        return map_tensors(lambda x: x[i], self)
+
+
+def map_tensors(fn, obj):
+    """A copy of a dataclass of tensors with ``fn`` applied to every
+    tensor, nested dataclasses included; None fields stay None."""
+    kw = {}
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        if dataclasses.is_dataclass(v):
+            v = map_tensors(fn, v)
+        elif isinstance(v, torch.Tensor):
+            v = fn(v)
+        kw[f.name] = v
+    return dataclasses.replace(obj, **kw)

@@ -11,6 +11,7 @@ exact, floats within 1e-9.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 from typing import Mapping
 
 import numpy as np
@@ -45,16 +46,24 @@ def one_torch_thread():
 
 def port_workload(ref, device="cpu"):
     """The port's copy of a reference workload object (anything with
-    fks_tpu's ``cluster``/``pods`` field names), through numpy."""
+    fks_tpu's ``cluster``/``pods``/``faults`` field names), through
+    numpy."""
     from fks_tpu_torch.convert import (
         CLUSTER_FIELDS, POD_FIELDS, workload_from_numpy,
     )
+    from fks_tpu_torch.data.entities import FaultEvents
 
     cluster = {k: np.asarray(getattr(ref.cluster, k)) for k in CLUSTER_FIELDS}
     pods = {k: np.asarray(getattr(ref.pods, k)) for k in POD_FIELDS}
     cluster["node_ids"] = ref.cluster.node_ids
     pods["pod_ids"] = ref.pods.pod_ids
-    return workload_from_numpy(cluster, pods, device=device)
+    wl = workload_from_numpy(cluster, pods, device=device)
+    fe = getattr(ref, "faults", None)
+    if fe is not None:
+        wl = dataclasses.replace(wl, faults=FaultEvents(**{
+            k: torch.from_numpy(np.array(getattr(fe, k), copy=True))
+            for k in ("time", "node", "kind", "mask")}).to(device))
+    return wl
 
 
 def roomy_workload():
@@ -166,6 +175,47 @@ def golden_micro_workload():
     ]
     return make_workload(nodes, pods, pad_nodes_to=4, pad_gpus_to=4,
                          pad_pods_to=8)
+
+
+def random_policy_views(seed: int, lanes: int = 256, n: int = 16,
+                        g: int = 8, gpu_heavy: bool = False):
+    """``(PodView, NodeView, weights f32[lanes, 16])`` on the CPU, drawn
+    with numpy from ``seed``: one pod per lane against ``n`` shared nodes
+    of up to ``g`` GPUs (some CPU-only, some with every GPU free, one
+    padding node); ``gpu_heavy`` makes every pod ask for 1-3 GPUs."""
+    from fks_tpu_torch.sim.types import NodeView, PodView
+
+    rng = np.random.default_rng(seed)
+    gm = np.zeros((n, g), bool)
+    ngpu = rng.integers(0, g + 1, n)
+    ngpu[:3] = (0, g, 1)
+    for i, k in enumerate(ngpu):
+        gm[i, :k] = True
+    gmt = np.where(gm, 1000, 0).astype(np.int32)
+    ct = rng.integers(2000, 128000, n).astype(np.int32)
+    mt = rng.integers(4000, 786432, n).astype(np.int32)
+    nm = np.ones(n, bool)
+    nm[-1] = False
+    used = rng.random((lanes, n))
+    gml = np.where(gm, rng.integers(0, 1001, (lanes, n, g)), 0).astype(
+        np.int32)
+    gml[:, :, :2] = np.where(gm[:, :2], 1000, 0)  # some full GPUs free
+    t = torch.from_numpy
+    nodes = NodeView(
+        t((ct * (1 - used)).astype(np.int32)), t(ct),
+        t((mt * (1 - rng.random((lanes, n)))).astype(np.int32)), t(mt),
+        t(np.minimum(rng.integers(0, g + 2, (lanes, n)),
+                     ngpu + 1).astype(np.int32)),
+        t(ngpu.astype(np.int32)), t(gml), t(gmt), t(gmt.copy()), t(gm),
+        t(nm))
+    pod = PodView(*(t(x.astype(np.int32))[:, None] for x in (
+        rng.integers(0, 8000, lanes), rng.integers(0, 30000, lanes),
+        rng.integers(1, 4, lanes) if gpu_heavy else rng.integers(0, 3, lanes),
+        rng.integers(0, 1001, lanes),
+        rng.integers(0, 10**6, lanes), rng.integers(0, 10**4, lanes))))
+    w = rng.standard_normal((lanes, 16)).astype(np.float32)
+    w[:, 13] += 1.0  # best_fit-like weights keep scores in a real range
+    return pod, nodes, t(w)
 
 
 def _gpu_indices(bits) -> list:

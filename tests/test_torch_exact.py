@@ -14,7 +14,6 @@
   against fks_tpu's, and the repairs: ``SimConfig(cond_policy=True)``
   changes nothing, entry points need ``device="cpu"`` without a card.
 """
-import dataclasses
 import json
 import pathlib
 
@@ -363,16 +362,13 @@ def test_simulate_needs_a_card_unless_asked_for_the_cpu(mod, monkeypatch):
 
 @pytest.mark.parametrize("flag", [
     dict(node_prefilter_k=2), dict(state_pack=True),
-    dict(decision_trace=True)])
+    dict(state_pack=True, decision_trace=True)])
 def test_unported_flags_raise_in_exact_engine(flag):
     wl = port_workload(_roomy())
     with pytest.raises(ValueError, match="later slice"):
         engine.initial_state(wl, SimConfig(**flag))
     with pytest.raises(ValueError, match="later slice"):
         engine.simulate(wl, zoo.best_fit(), SimConfig(**flag), device="cpu")
-    with pytest.raises(ValueError, match="fault"):
-        engine.initial_state(dataclasses.replace(wl, faults=object()),
-                             SimConfig())
 
 
 def test_get_engine():

@@ -19,6 +19,7 @@ from fks_tpu.models import zoo as jzoo
 from fks_tpu.sim import flat as jflat
 from fks_tpu.sim.engine import SimConfig as JaxConfig
 from fks_tpu_torch.models import parametric, zoo
+from fks_tpu_torch.ops.heap import KIND_NODE_DOWN, KIND_NODE_UP
 from fks_tpu_torch.sim import flat
 from fks_tpu_torch.sim.engine import SimConfig
 from fks_tpu_torch.testing import (
@@ -120,7 +121,7 @@ def test_zoo_simulate_matches(name):
 
 @pytest.mark.parametrize("flag", [
     dict(node_prefilter_k=2), dict(state_pack=True),
-    dict(decision_trace=True)])
+    dict(state_pack=True, decision_trace=True)])
 def test_unported_flags_raise(flag):
     wl = port_workload(_roomy())
     with pytest.raises(ValueError, match="later slice"):
@@ -164,9 +165,16 @@ def test_every_branch_step_matches_skipping_step(workload, monkeypatch):
 
 
 def test_fault_workloads_raise():
-    wl = dataclasses.replace(port_workload(_roomy()), faults=object())
-    with pytest.raises(ValueError, match="fault"):
-        flat.initial_state(wl, SimConfig())
+    """Fault timelines run in the flat engine now; the fused kernel still
+    refuses them, as fks_tpu's does."""
+    from fks_tpu_torch.scenarios import make_fault_events
+    from fks_tpu_torch.sim import fused
+
+    faults = make_fault_events([(10, 1, KIND_NODE_DOWN), (50, 1, KIND_NODE_UP)])
+    wl = dataclasses.replace(port_workload(_roomy()), faults=faults)
+    assert flat.initial_state(wl, SimConfig()).fault_time.shape == (1, 2)
+    with pytest.raises(ValueError, match="fault-injected"):
+        fused.make_fused_population_run(wl, SimConfig(), device="cpu")
 
 
 def test_pop_tie_rule_is_first_slot():

@@ -1,5 +1,7 @@
-"""The fused CUDA kernel against its plain PyTorch version, and the exact
-engine's captured CUDA graphs against its CPU run, on the card.
+"""The fused CUDA kernel against its plain PyTorch version, the exact
+engine's captured CUDA graphs against its CPU run, the policies' scores
+and the scenario-suite path (trace batching, faults, the decision trace)
+on the card against the CPU.
 
 Marked ``gpu``: these need a CUDA card and skip without one. Run them on
 the GPU machine with
@@ -13,13 +15,16 @@ import gc
 import pytest
 import torch
 
+from fks_tpu_torch.data.synthetic import synthetic_workload
 from fks_tpu_torch.models import parametric, zoo
+from fks_tpu_torch.obs import tracing
 from fks_tpu_torch.parallel import make_population_eval
+from fks_tpu_torch.scenarios import get_suite, make_suite_eval
 from fks_tpu_torch.sim import engine, fused
 from fks_tpu_torch.sim.engine import SimConfig
 from fks_tpu_torch.testing import (
     assert_result_matches, contended_workload, golden_micro_workload,
-    result_fields, roomy_workload, tied_workload,
+    random_policy_views, result_fields, roomy_workload, tied_workload,
 )
 
 pytestmark = pytest.mark.gpu
@@ -109,3 +114,43 @@ def test_exact_population_graph_is_reused_and_matches_cpu(cuda):
     cpu = make_population_eval(wl, cfg=cfg, device="cpu")
     for res, params in zip(got, (first, second)):
         assert_result_matches(res, result_fields(cpu(params.cpu())))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_policy_scores_on_card_match_cpu(cuda, dtype):
+    """Every zoo policy (funsearch_4800's ``** 2.5`` and ``** 0.6``
+    included) and the parametric score give the CPU's integer scores on
+    the card; the CPU's are held to fks_tpu by tests/test_torch_zoo.py."""
+    pod, nodes, w = random_policy_views(7)
+    card = (type(pod)(*(x.to(cuda) for x in pod)),
+            type(nodes)(*(x.to(cuda) for x in nodes)))
+    policies = {name: make(dtype) for name, make in {
+        **zoo.ZOO, **zoo.BASELINE_FACTORIES,
+        "micro_best_fit": zoo.micro_best_fit}.items()}
+    for name, policy in policies.items():
+        assert torch.equal(policy(*card).cpu(), policy(pod, nodes)), name
+    got = parametric.score(w.to(cuda), *card, dtype=dtype).cpu()
+    assert torch.equal(got, parametric.score(w, pod, nodes, dtype=dtype))
+
+
+@pytest.mark.parametrize("eng", ["exact", "flat"])
+def test_suite_eval_on_card_matches_cpu(cuda, eng):
+    """smoke3 (a fault lane included) at pop 4 through captured graphs,
+    called twice (the second call replays the first call's graph), equals
+    the CPU's eager runs; the decision trace of the fault lane too."""
+    suite = get_suite("smoke3", synthetic_workload(4, 24, seed=3))
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    pops = [parametric.init_population(gen, 4, noise=0.3) for _ in range(2)]
+    evaluate = make_suite_eval(suite, population=True, engine=eng,
+                               device=cuda)
+    got = [evaluate(p) for p in pops]
+    assert len(evaluate.graphs) == 1
+    cpu = make_suite_eval(suite, population=True, engine=eng, device="cpu")
+    for res, params in zip(got, pops):
+        assert_result_matches(res, result_fields(cpu(params.cpu())))
+    wl = suite.workloads[2]
+    rows = [tracing.extract_trace(tracing.replay(
+        wl, eng, parametric.score, pops[0][1].to(dev), device=dev))
+        for dev in (cuda, "cpu")]
+    assert rows[0] == rows[1]
+    assert sum(r["kind"] in ("NODE_DOWN", "NODE_UP") for r in rows[0]) == 2

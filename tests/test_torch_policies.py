@@ -26,44 +26,21 @@ from fks_tpu_torch.models import parametric, zoo
 from fks_tpu_torch.ops import allocator
 from fks_tpu_torch.ops.numerics import fma_f32
 from fks_tpu_torch.sim.types import NodeView, PodView
+from fks_tpu_torch.testing import random_policy_views
 
 L, N, G = 256, 16, 8  # 4,096 node views per draw
 
 
 def random_views(seed: int, gpu_heavy: bool = False):
-    """numpy arrays for L lanes (one pod each) over N shared nodes."""
-    rng = np.random.default_rng(seed)
-    gm = np.zeros((N, G), bool)
-    ngpu = rng.integers(0, G + 1, N)
-    ngpu[:3] = (0, G, 1)
-    for i, k in enumerate(ngpu):
-        gm[i, :k] = True
-    gmt = np.where(gm, 1000, 0).astype(np.int32)
-    ct = rng.integers(2000, 128000, N).astype(np.int32)
-    mt = rng.integers(4000, 786432, N).astype(np.int32)
-    nm = np.ones(N, bool)
-    nm[-1] = False
-    used = rng.random((L, N))
-    gml = np.where(gm, rng.integers(0, 1001, (L, N, G)), 0).astype(np.int32)
-    gml[:, :, :2] = np.where(gm[:, :2], 1000, 0)  # some full GPUs free
-    view = dict(
-        cpu_left=(ct * (1 - used)).astype(np.int32), cpu_total=ct,
-        mem_left=(mt * (1 - rng.random((L, N)))).astype(np.int32),
-        mem_total=mt,
-        gpu_left=np.minimum(rng.integers(0, G + 2, (L, N)),
-                            ngpu + 1).astype(np.int32),
-        num_gpus=ngpu.astype(np.int32), gml=gml, gmt=gmt, gm=gm, nm=nm)
-    pod = dict(
-        cpu=rng.integers(0, 8000, L).astype(np.int32),
-        mem=rng.integers(0, 30000, L).astype(np.int32),
-        ngpu=(rng.integers(1, 4, L) if gpu_heavy
-              else rng.integers(0, 3, L)).astype(np.int32),
-        milli=rng.integers(0, 1001, L).astype(np.int32),
-        ctime=rng.integers(0, 10**6, L).astype(np.int32),
-        dur=rng.integers(0, 10**4, L).astype(np.int32))
-    w = rng.standard_normal((L, 16)).astype(np.float32)
-    w[:, 13] += 1.0  # best_fit-like weights keep scores in a real range
-    return view, pod, w
+    """numpy arrays for L lanes (one pod each) over N shared nodes: the
+    draw of ``testing.random_policy_views``."""
+    pod, nodes, w = random_policy_views(seed, L, N, G, gpu_heavy)
+    view = dict(zip(("cpu_left", "cpu_total", "mem_left", "mem_total",
+                     "gpu_left", "num_gpus", "gml", "gmt"),
+                    (x.numpy() for x in nodes[:8])))
+    view.update(gm=nodes.gpu_mask.numpy(), nm=nodes.node_mask.numpy())
+    return view, {k: x[:, 0].numpy() for k, x in zip(
+        ("cpu", "mem", "ngpu", "milli", "ctime", "dur"), pod)}, w.numpy()
 
 
 def port_views(view, pod):
