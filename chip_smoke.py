@@ -52,7 +52,30 @@ Phases (any failure raises and exits non-zero):
    decision trace on ``fault1`` (its score equals the untraced run, its
    fault rows the scenario's fault count) and ``trace_diff`` of the exact
    engine against itself (no divergence);
-9. one ``{"kernels": [...]}`` line, then the last line
+9. code candidates at the default cluster's width (16 nodes, G = 8; plain
+   PyTorch, no hand kernel): the two template seeds and the 13
+   discovered champions, transpiled and lowered to the funsearch VM, in
+   float64 and float32 on 4 x 256 random views — the VM's integer scores
+   on the card equal the transpiled policy's on the card and on the CPU;
+   the 15 programs stacked (capacity 512, 16 lanes) through the exact and
+   the flat engine in float64 on the first 512 pods of the default trace,
+   every lane's score, scheduled pods and events held to
+   ``tests/fixtures/vm_prefix512_pins.json`` (fks_tpu's VM population),
+   timed: seconds per eval, the longest lane's steps, ms per step (graph
+   replays), us per op slot and candidate evals/s; the 0.5365 champion
+   alone through the transpiled tier equal to its batched lane;
+10. 1,000 nodes (``bench.py::stage_scale1k``'s shape, cut): first_fit-
+   anchored parametric lanes (pop 4) on ``synthetic_workload(1000, 10000,
+   seed=1)``, the flat engine dense and unsegmented against
+   ``node_prefilter_k=64`` + ``state_pack`` + the double-buffered
+   segmented runner (8,192 steps), every integer field and the score
+   identical, events/s of each and the flat state's bytes with and
+   without packing; the first_fit seed program on the VM (4 lanes,
+   capacity 256) on 1,000 nodes x 96 pods, dense against k = 64: ms per
+   step of each, their ratio, fitness drift 0; ``probe_policy_cost`` on
+   the card for ``parametric.score`` and ``vm.score_static`` and the k
+   ``resolve_auto_prefilter`` picks for each;
+11. one ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the fks_tpu package.
@@ -401,6 +424,259 @@ def scenario_phase(dev, wl, params, card) -> None:
         f"phase {time.perf_counter() - t_phase:.1f} s")
 
 
+def lanes_of(pod, nodes, rows):
+    """The views of the lanes ``rows`` (bool[L]) only; shared node tables
+    stay as they are."""
+    grids = ("gpu_milli_left", "gpu_milli_total", "gpu_mem_total",
+             "gpu_mask")
+    return (type(pod)(*(x[rows] for x in pod)),
+            type(nodes)(*(x[rows] if x.dim() == (3 if f in grids else 2)
+                          else x for f, x in zip(nodes._fields, nodes))))
+
+
+def code_phase(dev, card) -> dict:
+    """Phase 9 (module docstring): code candidates on the VM and the
+    transpiled tier at the default cluster's width (16 nodes, G = 8).
+    Returns the numbers the summary line carries."""
+    import torch
+
+    from fks_tpu_torch.data import TraceParser
+    from fks_tpu_torch.funsearch import template, transpiler, vm
+    from fks_tpu_torch.parallel import make_population_eval
+    from fks_tpu_torch.sim import engine
+    from fks_tpu_torch.sim.engine import SimConfig
+    from fks_tpu_torch.testing import random_policy_views
+
+    t_phase = time.perf_counter()
+    pins = json.loads((ROOT / "tests" / "fixtures"
+                       / "vm_prefix512_pins.json").read_text())
+    codes = list(template.seed_policies().values()) + [
+        json.loads((ROOT / "policies" / "discovered" / f).read_text())["code"]
+        for f in pins["lanes"][2:-1]]
+    champ = pins["lanes"].index(CHAMPION.name)
+
+    # (a) VM == transpiled on the card, card == CPU, float64 and float32:
+    # lane l of each 256-lane draw runs candidate l % 15
+    checked = 0
+    for dtype in (torch.float64, torch.float32):
+        policies = [transpiler.transpile(c, dtype=dtype) for c in codes]
+        progs = vm.stack_programs([vm.compile_policy(c, 16, 8, dtype=dtype)
+                                   for c in codes], capacity=512)
+        for seed in range(4):
+            pod, nodes, _ = random_policy_views(seed, gpu_heavy=seed % 2 == 1)
+            lanes = pod.cpu_milli.shape[0]
+            which = torch.arange(lanes) % len(codes)
+            card_pod = type(pod)(*(x.to(dev) for x in pod))
+            card_nodes = type(nodes)(*(x.to(dev) for x in nodes))
+            per_lane = vm.select_slot(progs, which)
+            got = vm.score_static(
+                type(per_lane)(*(x.to(dev) for x in per_lane)),
+                card_pod, card_nodes).cpu()
+            for i, policy in enumerate(policies):
+                rows = which == i
+                card_tr = policy(*lanes_of(card_pod, card_nodes,
+                                           rows.to(dev))).cpu()
+                cpu_tr = policy(*lanes_of(pod, nodes, rows))
+                for label, a in (("VM on the card", got[rows]),
+                                 ("transpiled on the card", card_tr)):
+                    if not torch.equal(a, cpu_tr):
+                        bad = (a != cpu_tr).nonzero()[0].tolist()
+                        raise AssertionError(
+                            f"candidate {i} {dtype} draw {seed}: {label} "
+                            f"{a[tuple(bad)]} != CPU transpiled "
+                            f"{cpu_tr[tuple(bad)]} at {bad}")
+                checked += int(rows.sum()) * nodes.cpu_milli_left.shape[1]
+    log(f"[code] {len(codes)} candidates (2 seeds, 13 champions) x float64/"
+        f"float32 x 4 draws of 256 lanes: {checked} VM scores on the card "
+        f"== transpiled on the card == transpiled on the CPU "
+        f"({time.perf_counter() - t_phase:.1f} s)")
+
+    # (b, c) the 15 programs stacked (capacity 512, 16 lanes) through the
+    # exact and the flat engine on the first 512 pods, float64
+    wl = TraceParser().parse_workload(max_pods=pins["pods"]).to(dev)
+    progs = [vm.compile_policy(c, 16, 8, capacity=512) for c in codes]
+    progs += [progs[-1]] * (vm.bucket_lanes(len(progs)) - len(progs))
+    stacked = vm.stack_programs(progs, capacity=512)
+    lanes = len(progs)
+    cfg = SimConfig(score_dtype=torch.float64)
+    out = {}
+    for eng in ("exact", "flat"):
+        evaluate = make_population_eval(wl, vm.score_static, cfg,
+                                        engine=eng, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = evaluate(stacked)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        pin = pins[eng]
+        got = {"policy_score": res.policy_score.tolist(),
+               "scheduled_pods": res.scheduled_pods.tolist(),
+               "events_processed": res.events_processed.tolist()}
+        for k in ("scheduled_pods", "events_processed"):
+            if got[k] != pin[k]:
+                raise AssertionError(f"{eng} VM population {k}: {got[k]} != "
+                                     f"fks_tpu pin {pin[k]}")
+        worst = max(abs(a - b) for a, b in zip(got["policy_score"],
+                                                pin["policy_score"]))
+        if worst > 1e-9:
+            raise AssertionError(f"{eng} VM population scores "
+                                 f"{got['policy_score']} differ from the "
+                                 f"fks_tpu pins by {worst:.3g} > 1e-9")
+        # steady step time: replays of the finished state run every op
+        # slot of every step (the card skips no work for idle lanes)
+        graphed = evaluate.run.graphs[lanes]
+        step_ms = cuda_ms(graphed.replay, 3) / graphed.steps
+        longest = int(graphed.state.steps.max())
+        out[eng] = {"s_per_eval": wall, "longest_steps": longest,
+                    "ms_per_step": step_ms,
+                    "us_per_op_slot": step_ms * 1e3 / stacked.capacity,
+                    "evals_per_s": len(codes) / wall}
+        log(f"[code] {eng} engine, {len(codes)} candidates in {lanes} lanes "
+            f"(capacity {stacked.capacity}, float64), first {pins['pods']} "
+            f"pods: {wall:.3f} s per eval with the graph capture, longest "
+            f"lane {longest} steps, {step_ms:.3f} ms per step (replays), "
+            f"{out[eng]['us_per_op_slot']:.3f} us per op slot, "
+            f"{out[eng]['evals_per_s']:.3f} candidate evals/s; every lane's "
+            f"score, scheduled pods and events equal the fks_tpu pins; "
+            f"card {card}")
+
+    t0 = time.perf_counter()
+    alone = engine.simulate(wl, transpiler.transpile(codes[champ]), cfg,
+                            device=dev)
+    if float(alone.policy_score) != pins["exact"]["policy_score"][champ] \
+            or int(alone.scheduled_pods) != \
+            pins["exact"]["scheduled_pods"][champ]:
+        raise AssertionError(
+            f"the 0.5365 champion alone (transpiled) scores "
+            f"{float(alone.policy_score)}, its VM lane "
+            f"{pins['exact']['policy_score'][champ]}")
+    log(f"[code] the 0.5365 champion alone through the transpiled tier "
+        f"(exact engine): {float(alone.policy_score):.12f}, equal to its "
+        f"batched VM lane ({time.perf_counter() - t0:.2f} s); phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def scale_phase(dev, card) -> dict:
+    """Phase 10 (module docstring): 1,000 nodes — the prefilter, packed
+    state and the segmented runner against the dense sweep, parametric and
+    VM, and the auto-prefilter probe on the card."""
+    import torch
+
+    from fks_tpu_torch.data.synthetic import synthetic_workload
+    from fks_tpu_torch.funsearch import template, vm
+    from fks_tpu_torch.models import parametric
+    from fks_tpu_torch.sim import engine, flat
+    from fks_tpu_torch.sim.engine import SimConfig
+    from fks_tpu_torch.testing import INT_FIELDS
+
+    t_phase = time.perf_counter()
+    out = {}
+    nodes, pods, pop, k = 1000, 10000, 4, 64
+    first_fit = parametric.seed_weights("first_fit")
+    params = first_fit[None].repeat(pop, 1).to(dev)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    def same(name, a, b):
+        for f in INT_FIELDS + ("policy_score",):
+            x, y = getattr(a, f), getattr(b, f)
+            if not torch.equal(x, y):
+                raise AssertionError(f"{name}: {f} differs: {x} vs {y}")
+
+    # (a) parametric, first_fit-anchored lanes: dense unsegmented against
+    # prefiltered + packed + segmented (double buffer)
+    wl = synthetic_workload(nodes, pods, seed=1).to(dev)
+    dense_cfg = SimConfig(max_steps=4 * pods, track_ctime=False)
+    scale_cfg = SimConfig(max_steps=4 * pods, track_ctime=False,
+                          node_prefilter_k=k, state_pack=True)
+    dense, wall_d = timed(lambda: flat.make_population_run_fn(
+        wl, parametric.score, dense_cfg)(
+            params, flat.initial_state(wl, dense_cfg)))
+    segments = []
+    run = flat.make_segmented_population_run(
+        wl, parametric.score, scale_cfg, seg_steps=8192,
+        on_segment=lambda: segments.append(1))
+    scaled, wall_s = timed(lambda: run(params,
+                                       flat.initial_state(wl, scale_cfg)))
+    same("1k parametric dense vs prefilter+state_pack+segmented", dense,
+         scaled)
+    events = int(dense.events_processed.sum())
+    bytes_wide = flat.state_bytes(flat.initial_state(wl, dense_cfg, pop))
+    bytes_packed = flat.state_bytes(flat.initial_state(wl, scale_cfg, pop))
+    out["parametric"] = {
+        "events": events, "dense_events_per_s": events / wall_d,
+        "scaled_events_per_s": events / wall_s, "segments": len(segments),
+        "state_bytes": bytes_wide, "state_bytes_packed": bytes_packed}
+    log(f"[scale] parametric pop {pop} on {nodes} nodes x {pods} pods: "
+        f"dense unsegmented {wall_d:.3f} s ({events / wall_d:.1f} events/s), "
+        f"k={k} + state_pack + segmented (8192 steps, double buffer, "
+        f"{len(segments)} segments) {wall_s:.3f} s ({events / wall_s:.1f} "
+        f"events/s), both with the graph capture; every integer field and "
+        f"the score identical; flat state {bytes_wide} B, packed "
+        f"{bytes_packed} B; card {card}")
+
+    # (b) the first_fit seed program on the VM, 4 lanes at capacity 256,
+    # dense against k = 64 (the segmented runner, as bench does)
+    vm_pods = 96
+    wl_v = synthetic_workload(nodes, vm_pods, seed=1).to(dev)
+    prog = vm.compile_policy(template.seed_policies()["first_fit"],
+                             wl_v.cluster.n_padded, wl_v.cluster.g_padded,
+                             capacity=256)
+    stacked = vm.stack_programs([prog] * pop, capacity=256)
+    stacked = type(stacked)(*(x.to(dev) for x in stacked))
+    vm_out = {}
+    for label, kk in (("dense", 0), ("prefilter", k)):
+        cfg = SimConfig(max_steps=4 * vm_pods, track_ctime=False,
+                        node_prefilter_k=kk, state_pack=kk > 0)
+        run = flat.make_segmented_population_run(wl_v, vm.score_static, cfg,
+                                                 seg_steps=16384)
+        res, wall = timed(lambda: run(stacked,
+                                      flat.initial_state(wl_v, cfg)))
+        chunk = run.graphs[pop]
+        step_ms = cuda_ms(chunk.replay, 3) / chunk.steps
+        vm_out[label] = (res, step_ms, wall)
+    drift = float((vm_out["prefilter"][0].policy_score
+                   - vm_out["dense"][0].policy_score).abs().max())
+    same("1k VM dense vs prefilter", vm_out["dense"][0],
+         vm_out["prefilter"][0])
+    ratio = vm_out["dense"][1] / vm_out["prefilter"][1]
+    out["vm"] = {"dense_ms_per_step": vm_out["dense"][1],
+                 "prefilter_ms_per_step": vm_out["prefilter"][1],
+                 "ratio": ratio, "drift": drift,
+                 "steps": int(vm_out["dense"][0].events_processed.max())}
+    log(f"[scale] VM first_fit seed, {pop} lanes, capacity 256, {nodes} "
+        f"nodes x {vm_pods} pods: dense {vm_out['dense'][1]:.3f} ms per "
+        f"step, k={k} {vm_out['prefilter'][1]:.3f} ms per step (replays), "
+        f"ratio {ratio:.2f}x; runs {vm_out['dense'][2]:.2f} s and "
+        f"{vm_out['prefilter'][2]:.2f} s with the capture; fitness drift "
+        f"{drift} (every integer field identical)")
+
+    # (c) the auto-prefilter probe on the card at N = 1,000
+    n, g = wl.cluster.n_padded, wl.cluster.g_padded
+    probes = {}
+    for name, policy, prm in (("parametric", parametric.score, first_fit),
+                              ("vm", vm.score_static, prog)):
+        cost = engine.probe_policy_cost(policy, prm, n, g, device=dev)
+        chosen = engine.resolve_auto_prefilter(policy, prm, n, g,
+                                               device=dev)
+        probes[name] = {"cost_s": cost, "k": chosen}
+    out["probe"] = probes
+    log(f"[scale] probe_policy_cost at N={n}, G={g}: parametric.score "
+        f"{probes['parametric']['cost_s'] * 1e6:.1f} us (auto k="
+        f"{probes['parametric']['k']}), vm.score_static capacity 256 "
+        f"{probes['vm']['cost_s'] * 1e6:.1f} us (auto k="
+        f"{probes['vm']['k']}); threshold "
+        f"{engine.PREFILTER_COST_THRESHOLD_S * 1e6:.0f} us; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 class RowRecorder:
     """A recorder (``obs.recorder`` API) that keeps each replay's rows."""
 
@@ -435,7 +711,7 @@ def main() -> int:
         contended_workload, roomy_workload, tied_workload,
     )
     for name in ("golden_default.json", "golden_micro.json",
-                 "golden_scenario_fault.json"):
+                 "golden_scenario_fault.json", "vm_prefix512_pins.json"):
         if not (ROOT / "tests" / "fixtures" / name).is_file():
             raise SystemExit(f"chip_smoke.py needs tests/fixtures/{name}")
 
@@ -596,7 +872,14 @@ def main() -> int:
     # ---- 8. scenario suites
     scenario_phase(dev, wl, params, card)
 
-    # ---- 9. summary
+    # ---- 9. code candidates
+    summary = {"code": code_phase(dev, card)}
+
+    # ---- 10. 1,000 nodes
+    summary["scale"] = scale_phase(dev, card)
+
+    # ---- 11. summary
+    log(f"[summary] {json.dumps(summary)}")
     log(f"[card] {card}")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{

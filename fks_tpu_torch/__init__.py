@@ -15,6 +15,9 @@ randomness. Entry points run on ``cuda`` unless the caller passes
 Ported so far: the parametric-population main path — trace ingest, the
 flat engine, the fused simulation kernel (``csrc/fused_sim.cu``),
 population fitness and single-device parametric evolution; the exact heap
-engine; and robust fitness over scenario suites (``scenarios``,
-``parallel.traces``, the decision trace and ``obs.tracing``).
+engine; robust fitness over scenario suites (``scenarios``,
+``parallel.traces``, the decision trace and ``obs.tracing``); code
+candidates (``funsearch.sandbox``, ``template``, ``transpiler`` and the
+``vm``); and the large-cluster tier (``SimConfig.node_prefilter_k``,
+``state_pack``, ``sim.flat.make_segmented_population_run``).
 """

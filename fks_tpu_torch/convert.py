@@ -71,3 +71,29 @@ def load_champion_weights(path, device="cpu") -> torch.Tensor:
         raise ValueError(f"{path} has no 'weights' (not a parametric "
                          "champion)")
     return params_from_numpy(record["weights"], device)
+
+
+def vm_program_from_numpy(leaves, dtype=None, device="cpu"):
+    """The port's ``funsearch.vm.VMProgram`` from fks_tpu's: ``leaves``
+    maps each field name (opcode, a, b, c, imm, consts, n_ops, out_reg) to
+    a numpy array, or is the eight arrays in that order (a stacked program
+    keeps its leading axis). Integer fields become int32; ``imm`` and
+    ``consts`` keep their float dtype unless ``dtype`` (a torch dtype)
+    names another."""
+    from fks_tpu_torch.funsearch.vm import VMProgram
+
+    if isinstance(leaves, Mapping):
+        leaves = [leaves[k] for k in VMProgram._fields]
+    leaves = list(leaves)
+    if len(leaves) != len(VMProgram._fields):
+        raise ValueError(f"expected {len(VMProgram._fields)} arrays "
+                         f"{VMProgram._fields}, got {len(leaves)}")
+    out = {}
+    for name, a in zip(VMProgram._fields, leaves):
+        if name in ("imm", "consts"):
+            t = torch.from_numpy(np.array(a, copy=True))
+            out[name] = t if dtype is None else t.to(dtype)
+        else:
+            out[name] = _tensor(a, np.int32)
+    return VMProgram(**out) if device == "cpu" else VMProgram(
+        **{k: v.to(device) for k, v in out.items()})

@@ -205,8 +205,12 @@ class TraceParser:
 
     # ----------------------------------------------------------------- pods
     def parse_pods(self, pod_file: str = "openb_pod_list_default.csv",
-                   pad_pods_to: Optional[int] = None) -> PodArrays:
-        rows = self._read_csv(self.csv_dir / pod_file)
+                   pad_pods_to: Optional[int] = None,
+                   max_pods: Optional[int] = None) -> PodArrays:
+        """The pod table; ``max_pods`` keeps only the trace's first rows
+        (cut before any array is made, so ranks and padding are the
+        prefix's own)."""
+        rows = self._read_csv(self.csv_dir / pod_file)[:max_pods]
         ids, cpu, mem, ngpu, gmilli, ctime, dur = [], [], [], [], [], [], []
         for row in rows:
             ids.append(row["name"])
@@ -247,11 +251,12 @@ class TraceParser:
                        pod_file: str = "openb_pod_list_default.csv",
                        pad_nodes_to: Optional[int] = None,
                        pad_gpus_to: Optional[int] = None,
-                       pad_pods_to: Optional[int] = None) -> Workload:
+                       pad_pods_to: Optional[int] = None,
+                       max_pods: Optional[int] = None) -> Workload:
         """Defaults match the reference benchmark workload: 16 nodes x
-        8,152 pods."""
+        8,152 pods; ``max_pods`` cuts the pod trace to its first rows."""
         cluster = self.parse_cluster(node_file, pad_nodes_to, pad_gpus_to)
-        pods = self.parse_pods(pod_file, pad_pods_to)
+        pods = self.parse_pods(pod_file, pad_pods_to, max_pods)
         return Workload(cluster=cluster, pods=pods)
 
     # ------------------------------------------------------------ discovery

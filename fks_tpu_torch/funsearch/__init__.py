@@ -1,1 +1,2 @@
-"""Policy search: device-resident parametric evolution."""
+"""Policy search: device-resident parametric evolution, and code
+candidates — the sandbox, the template, the transpiler and the VM."""

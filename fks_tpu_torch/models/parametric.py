@@ -30,8 +30,8 @@ jit-compiles a workload as a constant, XLA also turns the divisions by
 node totals into multiplications by their reciprocals; those features
 then differ from the run-time-value form by an ulp (ROADMAP queue 3).
 
-``render_code`` (weights -> candidate source) waits for the port of
-``funsearch/template.py``.
+``render_code`` turns a weight vector into candidate source for the code
+tier (``funsearch.transpiler``, ``funsearch.vm``).
 """
 from __future__ import annotations
 
@@ -232,3 +232,70 @@ def mutate(generator: torch.Generator, parents: torch.Tensor, pop_size: int,
                     device=generator.device, dtype=parents.dtype)
     return mutate_from(parents, idx.to(parents.device), z.to(parents.device),
                        noise)
+
+
+# ------------------------------------------------- weights -> candidate code
+
+#: Restricted-Python rendering of each feature, in FEATURE_NAMES order.
+#: The expressions use only the transpilable subset (and the reference's
+#: whitelisted builtins, safe_execution.py:19-27), so a rendered candidate
+#: flows through the normal code path: sandbox -> transpiler -> engine.
+_FEATURE_EXPRS = (
+    "1.0",
+    "(node.cpu_milli_left - pod.cpu_milli) / max(1, node.cpu_milli_total)",
+    "(node.memory_mib_left - pod.memory_mib) / max(1, node.memory_mib_total)",
+    "(node.gpu_left - pod.num_gpu) / max(1, len(node.gpus))",
+    "1.0 - node.cpu_milli_left / max(1, node.cpu_milli_total)",
+    "1.0 - node.memory_mib_left / max(1, node.memory_mib_total)",
+    "1.0 - node.gpu_left / max(1, len(node.gpus))",
+    "1.0 - free_milli / max(1, total_milli)",
+    "1.0 - abs(node.cpu_milli_left / max(1, node.cpu_milli_total)"
+    " - node.memory_mib_left / max(1, node.memory_mib_total))",
+    "((free_milli % max(1, pod.gpu_milli)) / 1000.0) if pod.num_gpu > 0 else 0.0",
+    "sum(1 for gpu in node.gpus if gpu.gpu_milli_left >= pod.gpu_milli)"
+    " / max(1, len(node.gpus))",
+    "1.0 if pod.num_gpu > 0 else 0.0",
+    "1.0 if len(node.gpus) > 0 else 0.0",
+    "1.0 - (0.33 * (node.cpu_milli_left - pod.cpu_milli) / max(1, node.cpu_milli_total)"
+    " + 0.33 * (node.memory_mib_left - pod.memory_mib) / max(1, node.memory_mib_total)"
+    " + 0.34 * (node.gpu_left - pod.num_gpu) / max(1, len(node.gpus)))",
+    "((max(gpu.gpu_milli_left for gpu in node.gpus)"
+    " - min(gpu.gpu_milli_left for gpu in node.gpus)) / 1000.0)"
+    " if len(node.gpus) > 0 else 0.0",
+    "1.0 if (node.cpu_milli_left > 2 * pod.cpu_milli"
+    " and node.memory_mib_left > 2 * pod.memory_mib) else 0.0",
+)
+
+#: features whose expression reads the free/total gpu_milli prologue vars
+_NEEDS_MILLI = {"gpu_milli_util", "frag_mod"}
+
+
+def render_code(params, threshold: float = 1e-4) -> str:
+    """Render a weight vector as a reference-style candidate source
+    (fks_tpu.models.parametric.render_code, the same string): the bridge
+    from the parametric search back into the code population. The
+    rendered candidate re-enters through the sandbox and transpiler and is
+    re-scored there, so rendering need not be bit-exact to the float32
+    parametric arithmetic (and is not). Near-zero weights are dropped."""
+    from fks_tpu_torch.funsearch import template
+
+    w = torch.as_tensor(params).to(torch.float64).cpu().tolist()
+    terms = []
+    needs_milli = False
+    for name, expr, wi in zip(FEATURE_NAMES, _FEATURE_EXPRS, w):
+        if abs(wi) < threshold:
+            continue
+        terms.append(f"({wi:.6g}) * ({expr})")
+        if name in _NEEDS_MILLI:
+            needs_milli = True
+    if not terms:
+        terms = ["0.0"]
+    lines = []
+    if needs_milli:
+        lines.append("free_milli = sum(gpu.gpu_milli_left for gpu in node.gpus)")
+        lines.append(
+            "total_milli = sum(gpu.gpu_milli_total for gpu in node.gpus)")
+    body = "\n    + ".join(terms)
+    lines.append(f"score = {SCORE_SCALE:.1f} * ({body})")
+    return template.fill_template("\n".join("    " + l if i else l
+                                            for i, l in enumerate(lines)))

@@ -13,11 +13,12 @@ post-step free aggregates. This module is the host-side half:
   align them, record ``decision_trace`` and ``trace_diff`` events through
   the active recorder;
 - ``format_diff``: a readable table of a ``trace_diff`` record;
-- ``policy_params``: a zoo policy as ``(param_policy, params)``.
+- ``policy_params``: a zoo policy, or candidate source on the funsearch
+  VM, as ``(param_policy, params)``.
 
 Only the first divergent row is a root cause: every later difference is
-downstream of it. Code candidates (``code=``, ``candidate_trace_diff``)
-wait for the port of the funsearch VM.
+downstream of it. ``candidate_trace_diff`` takes fks_tpu's
+``CodeEvaluator`` and waits for the evolution slice of the port.
 """
 from __future__ import annotations
 
@@ -27,15 +28,19 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 from fks_tpu_torch.device import resolve_device
 from fks_tpu_torch.obs.recorder import get_recorder
 from fks_tpu_torch.sim.engine import SimConfig
-from fks_tpu_torch.sim.types import TRACE_KIND_NAMES, TraceBuffer
+from fks_tpu_torch.sim.types import (
+    TRACE_KIND_NAMES, TraceBuffer, map_tensors,
+)
 
 #: row fields compared exactly / within score_tol by align_traces
 _EXACT_FIELDS = ("kind", "pod", "node", "pending",
                  "free_cpu", "free_mem", "free_gpu", "free_gpu_milli")
 _SCORE_FIELDS = ("score", "margin")
 
-_VM = ("code candidates run on the funsearch VM, which is not ported yet "
-       "(ROADMAP queue 1, the VM and code-candidate tier)")
+_EVOLUTION = ("candidate_trace_diff takes a CodeEvaluator "
+              "(funsearch/backend.py), which is not ported yet (ROADMAP "
+              "queue 1, the evolution slice); replay a candidate with "
+              "trace_diff and policy_params(code=...) meanwhile")
 
 
 def extract_trace(result_or_buffer, lane: Optional[int] = None
@@ -104,14 +109,16 @@ def align_traces(a: Sequence[Dict[str, Any]], b: Sequence[Dict[str, Any]],
 def replay(workload, engine: str, param_policy, params,
            cfg: SimConfig = SimConfig(), device=None):
     """Re-run ``engine`` ("exact" | "flat") on ``workload`` with the
-    decision trace forced on, on ``device`` (default ``cuda``); returns the
-    one-lane SimResult (``.trace`` set, no lane axis)."""
+    decision trace forced on, on ``device`` (default ``cuda``), the params
+    (weights, a VM program, or None) moved there too; returns the one-lane
+    SimResult (``.trace`` set, no lane axis)."""
     from fks_tpu_torch.sim import get_engine
 
     cfg = dataclasses.replace(cfg, decision_trace=True)
     mod = get_engine(engine)  # rejects "fused" with an explanation
     wl = workload.to(resolve_device(device))
     run = mod.make_param_run_fn(wl, param_policy, cfg)
+    params = map_tensors(lambda x: x.to(wl.device), params)
     return run(params, mod.initial_state(wl, cfg)).lane(0)
 
 
@@ -183,13 +190,25 @@ def format_diff(record: Dict[str, Any]) -> str:
 
 def policy_params(workload, policy_name: str = "", code: str = "",
                   capacity: int = 512) -> Tuple[Any, Any]:
-    """(param_policy, params) of zoo policy ``policy_name`` (params None).
-    Candidate source ``code`` raises: it needs the funsearch VM."""
+    """(param_policy, params) for a replay: candidate source ``code`` runs
+    on the funsearch VM (``vm.score`` and its program for the workload's
+    padded shape, float64); otherwise ``policy_name`` picks a zoo policy
+    (params None)."""
     if code:
-        raise ValueError(_VM)
+        from fks_tpu_torch.funsearch import vm
+        return vm.score, vm.compile_for_workload(code, workload,
+                                                 capacity=capacity)
     from fks_tpu_torch.models import zoo
     if policy_name not in zoo.ZOO:
         raise ValueError(f"unknown policy {policy_name!r}; "
                          f"available: {', '.join(sorted(zoo.ZOO))}")
     pol = zoo.ZOO[policy_name]()
     return (lambda _p, pod, nodes: pol(pod, nodes)), None
+
+
+def candidate_trace_diff(evaluator, code: str, recorder=None,
+                         score_tol: float = 1e-5,
+                         label: str = "") -> Dict[str, Any]:
+    """fks_tpu.obs.tracing.candidate_trace_diff: raises ValueError until
+    the evolution slice ports the ``CodeEvaluator`` it takes."""
+    raise ValueError(_EVOLUTION)

@@ -16,7 +16,9 @@ from fks_tpu_torch.device import resolve_device
 from fks_tpu_torch.models import parametric
 from fks_tpu_torch.sim import get_engine
 from fks_tpu_torch.sim.engine import SimConfig
-from fks_tpu_torch.sim.types import NodeView, PodView, SimResult
+from fks_tpu_torch.sim.types import (
+    NodeView, PodView, SimResult, as_params, map_tensors,
+)
 
 # (params, PodView, NodeView) -> i32[L, N] scores
 ParamPolicyFn = Callable[[torch.Tensor, PodView, NodeView], torch.Tensor]
@@ -54,7 +56,8 @@ def make_population_eval(workload: Workload,
     state0 = mod.initial_state(wl, cfg)
 
     def population_eval(params) -> SimResult:
-        return run(torch.as_tensor(params).to(dev), state0)
+        return run(map_tensors(lambda x: x.to(dev), as_params(params)),
+                   state0)
 
     population_eval.run = run  # the engine's runner (captured graphs)
     return population_eval

@@ -25,13 +25,16 @@ from fks_tpu_torch.device import resolve_device
 from fks_tpu_torch.models import parametric
 from fks_tpu_torch.sim import get_engine
 from fks_tpu_torch.sim.engine import (
-    GraphedChunk, SimConfig, copy_state_, run_batched_lanes, stack_states,
-    tile_state, zip_tensors,
+    GraphedChunk, SimConfig, bind_step, copy_state_, run_batched_lanes,
+    stack_states, tile_state, zip_tensors,
 )
 from fks_tpu_torch.sim.evaluator import (
     max_snapshot_count, snapshot_trigger_table,
 )
-from fks_tpu_torch.sim.types import SimResult, map_tensors
+from fks_tpu_torch.sim.types import (
+    SimResult, as_params, batch_size, clone_tensors, copy_tensors_,
+    map_tensors,
+)
 
 
 def strip_ids(wl: Workload) -> Workload:
@@ -119,20 +122,18 @@ def make_trace_batch_eval(workloads: Sequence[Workload],
     graphs = {}
 
     def build(params, lane_trace):
-        step = mod.build_step(
-            wl, lambda pod, nodes: param_policy(params, pod, nodes), cfg, kt,
-            max_steps, lane_trace=lane_trace)
-        step.params = params  # the graph's static input (copied into)
-        return step
+        return bind_step(mod.build_step, wl, param_policy, params, cfg, kt,
+                         max_steps, lane_trace=lane_trace)
 
     def eval_fn(params) -> SimResult:
         if params is not None:
-            params = torch.as_tensor(params).to(dev)
-        cands = params.shape[0] if population else 1
+            params = map_tensors(lambda x: x.to(dev), as_params(params))
+        cands = batch_size(params) if population else 1
         # lane c * T + t: candidate c on trace t
         lane_trace = torch.arange(traces, device=dev).repeat(cands)
         if population:
-            params = params.repeat_interleave(traces, dim=0)
+            params = map_tensors(
+                lambda x: x.repeat_interleave(traces, dim=0), params)
         state = tile_state(state0, cands)
         if dev.type != "cuda":
             final = run_batched_lanes(build(params, lane_trace), state,
@@ -142,12 +143,12 @@ def make_trace_batch_eval(workloads: Sequence[Workload],
             chunk = graphs.get(cands)
             if chunk is None:
                 chunk = GraphedChunk(
-                    build(None if params is None else params.clone(),
-                          lane_trace), state, max_steps, mod.lane_active)
+                    build(clone_tensors(params), lane_trace), state,
+                    max_steps, mod.lane_active)
                 graphs[cands] = chunk
             else:
                 if params is not None:
-                    chunk.step.params.copy_(params)
+                    copy_tensors_(chunk.step.params, params)
                 copy_state_(chunk.state, state)
             res = map_tensors(torch.clone, mod.finalize(
                 wl, cfg, chunk.run(), lane_trace=lane_trace))

@@ -41,10 +41,13 @@ trace. The pod tables stay ``[T, P, ...]`` and are read at (trace, pod);
 the cluster tables stay ``[N]``-shaped when every trace has the same
 cluster and become ``[L, N]`` otherwise.
 
-Not ported yet (a ValueError names ROADMAP queue 1): ``node_prefilter_k``
-and its auto-prefilter helpers, and ``state_pack``. ``cond_policy`` is
-accepted and, as in fks_tpu, changes no result: the policy runs on every
-step.
+Large clusters: ``SimConfig.node_prefilter_k`` (both engines) scores only
+the first k feasible nodes of each event (``prefilter_candidates``,
+``gather_node_view``); ``probe_policy_cost``, ``auto_prefilter_k`` and
+``resolve_auto_prefilter`` choose k from a measured policy cost.
+``state_pack`` narrows the flat engine's state and is accepted and
+ignored here, as in fks_tpu. ``cond_policy`` is accepted and, as in
+fks_tpu, changes no result: the policy runs on every step.
 """
 from __future__ import annotations
 
@@ -69,7 +72,7 @@ from fks_tpu_torch.sim.guards import fitness_flags, guard_scores
 from fks_tpu_torch.sim.types import (
     TRACE_CREATE, TRACE_DELETE, TRACE_NODE_DOWN, TRACE_NODE_UP, TRACE_RETRY,
     NodeView, PodView, PolicyFn, SimResult, SimState, TraceBuffer,
-    empty_trace, map_tensors,
+    batch_size, clone_tensors, copy_tensors_, empty_trace, map_tensors,
 )
 
 #: steps between the host's checks that some lane is still active (one
@@ -77,17 +80,10 @@ from fks_tpu_torch.sim.types import (
 #: extra steps of the last round are no-ops
 SYNC_EVERY = 16
 
-_LATER = ("a later slice of the port (ROADMAP queue 1, next: "
-          "node_prefilter_k with the auto-prefilter, state_pack and "
-          "make_segmented_population_run)")
-
 
 @dataclasses.dataclass(frozen=True)
 class SimConfig:
-    """Static simulation knobs (fks_tpu.sim.engine.SimConfig). The flags
-    the port does not implement yet (``node_prefilter_k``, ``state_pack``)
-    are kept so that setting one raises a ValueError that names the slice
-    it waits for, instead of a TypeError."""
+    """Static simulation knobs (fks_tpu.sim.engine.SimConfig)."""
 
     max_steps_factor: int = 8  # runaway guard: max events = factor * num_pods
     max_steps: Optional[int] = None  # overrides the factor when set
@@ -117,8 +113,30 @@ class SimConfig:
     # score a truncated prefix: the fitness gate drops "no pending events"
     # and "every pod assigned" (fks_tpu.funsearch.budget's probe rungs)
     probe_score: bool = False
+    # top-k candidate-node prefiltering (both engines): 0 sweeps every node
+    # per event; k > 0 scores only the first k feasible nodes (ascending
+    # index, under the cordon mask) and maps the winner back to its global
+    # index. Exact for policies that refuse infeasible nodes and prefer
+    # lower indices among equal scores (first_fit and every feasibility-
+    # gated zoo and parametric policy on its preferred node); for others
+    # the winner is the argmax over the candidates. k >= n_padded falls
+    # back to the dense sweep
     node_prefilter_k: int = 0
+    # narrow the flat engine's state columns whose full range provably
+    # fits 16 bits at this workload's shape (sim.flat._pack_dtypes);
+    # exact, so results are bit-identical. The exact engine ignores it
     state_pack: bool = False
+
+    def resolve_prefilter_k(self, n_padded: int) -> int:
+        """Candidate count for top-k node prefiltering: 0 means dense
+        sweep. Values >= n_padded fall back to 0 (gathering every node in
+        rank order is slower than the dense sweep)."""
+        k = self.node_prefilter_k
+        if k < 0:
+            raise ValueError(
+                f"node_prefilter_k must be >= 0 (0 disables prefiltering), "
+                f"got {k}")
+        return k if 0 < k < n_padded else 0
 
     def resolve_max_steps(self, num_pods: int) -> int:
         if self.max_steps is not None:
@@ -131,19 +149,12 @@ class SimConfig:
         return self.resolve_max_steps(num_pods)
 
 
-def check_ported(workload: Workload, cfg: SimConfig) -> None:
-    """Raise ValueError for an option the port does not implement yet (in
-    either engine)."""
-    pending = [
-        (bool(cfg.node_prefilter_k), "node_prefilter_k"),
-        (cfg.state_pack, "state_pack"),
-    ]
-    for on, name in pending:
-        if on:
-            raise ValueError(f"{name} is not ported yet; it waits for "
-                             f"{_LATER}")
+def check_config(cfg: SimConfig) -> None:
+    """Raise ValueError for an unknown allocator or a negative
+    ``node_prefilter_k`` (either engine)."""
     if cfg.gpu_allocator not in ("best_fit", "first_fit"):
         raise ValueError(f"unknown gpu_allocator {cfg.gpu_allocator!r}")
+    cfg.resolve_prefilter_k(1)
 
 
 def loop_tables(workload: Workload, cfg: SimConfig):
@@ -180,6 +191,59 @@ def _node_view(c: ClusterArrays, cpu_left, mem_left, gpu_left,
         gpu_milli_left=gpu_milli_left, gpu_milli_total=c.gpu_milli_total,
         gpu_mem_total=c.gpu_mem_total, gpu_mask=c.gpu_mask,
         node_mask=c.node_mask)
+
+
+#: NodeView fields with a trailing GPU axis
+_GRID_FIELDS = frozenset(("gpu_milli_left", "gpu_milli_total",
+                          "gpu_mem_total", "gpu_mask"))
+
+
+def prefilter_candidates(pod: PodView, nodes: NodeView, place_mask,
+                         k: int) -> torch.Tensor:
+    """Top-k candidate nodes of each lane's event (``SimConfig.
+    node_prefilter_k``; fks_tpu.sim.engine._prefilter_candidates): the
+    first k nodes, in ascending global index, that pass the zoo's
+    feasibility test (free CPU, memory, GPU count and enough GPUs with
+    the pod's milli free) under ``place_mask`` (bool[N] or [L, N]), so a
+    cordoned or padding node never enters a slot. An argmax over the
+    gathered view keeps the dense sweep's lowest-index tie rule. When
+    fewer than k nodes are feasible the tail repeats the first candidate;
+    when none is, every slot is node 0, which the caller's
+    ``place_mask[cand]`` re-mask scores 0, so the event fails as under the
+    dense sweep.
+
+    Slot j is the node where the running feasible count reaches j + 1: a
+    cumsum and a ``searchsorted``, the cumsum + one-hot selection of
+    fks_tpu in O(k log N), no host sync. Returns i64[L, k]."""
+    eligible = (nodes.gpu_mask & (nodes.gpu_milli_left
+                                  >= pod.gpu_milli[..., None])).sum(dim=-1)
+    gpu_ok = (pod.num_gpu <= 0) | (eligible >= pod.num_gpu)
+    feasible = (place_mask & (pod.cpu_milli <= nodes.cpu_milli_left)
+                & (pod.memory_mib <= nodes.memory_mib_left)
+                & (pod.num_gpu <= nodes.gpu_left) & gpu_ok)  # [L, N]
+    count = feasible.cumsum(dim=-1)  # i64[L, N], non-decreasing
+    k_iota = torch.arange(k, device=count.device)
+    slot = torch.searchsorted(count, (k_iota + 1).expand(
+        count.shape[0], k).contiguous())  # N where past the count
+    first = torch.where(count[:, -1:] > 0, slot[:, :1], 0)
+    return torch.where(k_iota < count[:, -1:], slot, first)
+
+
+def gather_node_view(nodes: NodeView, cand: torch.Tensor) -> NodeView:
+    """The ``[L, k, ...]`` candidate view (fks_tpu.sim.engine.
+    _gather_node_view): every field at each lane's candidate nodes
+    ``cand`` i64[L, k]; shared ``[N]`` / ``[N, G]`` fields become per
+    lane."""
+    out = []
+    for name, leaf in zip(NodeView._fields, nodes):
+        grid = name in _GRID_FIELDS
+        if leaf.dim() == (3 if grid else 2):  # per lane
+            idx = cand[..., None].expand(-1, -1, leaf.shape[-1]) \
+                if grid else cand
+            out.append(leaf.gather(1, idx))
+        else:
+            out.append(leaf[cand])
+    return NodeView(*out)
 
 
 def _cluster_totals(c: ClusterArrays) -> torch.Tensor:
@@ -442,18 +506,42 @@ def copy_state_(dst, src) -> None:
             a.copy_(b)
 
 
-def run_chunk(step, state) -> None:
-    """``SYNC_EVERY`` steps from ``state``, written back into ``state``'s
-    own tensors — the body ``GraphedChunk`` captures, so repeating it on
-    one state object is what a replay does."""
+def run_chunk(step, state, steps: int = SYNC_EVERY) -> None:
+    """``steps`` steps from ``state``, written back into ``state``'s own
+    tensors — the body ``GraphedChunk`` captures, so repeating it on one
+    state object is what a replay does."""
     out = state
-    for _ in range(SYNC_EVERY):
+    for _ in range(steps):
         out = step(out)
     copy_state_(state, out)
 
 
+def graph_steps(obj) -> int:
+    """Steps a captured CUDA graph holds for a policy or a step built by
+    ``bind_step``: its ``graph_steps`` attribute (the funsearch VM, which
+    launches tens of thousands of kernels per step, captures one step),
+    else ``SYNC_EVERY``."""
+    return int(getattr(obj, "graph_steps", SYNC_EVERY))
+
+
+def bind_step(build_step_fn, workload: Workload, param_policy, params,
+              cfg: SimConfig, ktable, max_steps: int, **kw):
+    """``build_step_fn`` (either engine's ``build_step``) over
+    ``param_policy`` bound to ``params``. The step carries ``params`` (a
+    captured graph's static input, copied into) and its policy's
+    ``graph_steps``, which ``GraphedChunk`` and ``run_batched_lanes``
+    read: every runner binds its step here, so none decides the steps
+    per graph on its own."""
+    step = build_step_fn(
+        workload, lambda pod, nodes: param_policy(params, pod, nodes), cfg,
+        ktable, max_steps, **kw)
+    step.params = params
+    step.graph_steps = graph_steps(param_policy)
+    return step
+
+
 class GraphedChunk:
-    """``SYNC_EVERY`` steps of a self-masking step on a fixed state,
+    """``graph_steps(step)`` steps of a self-masking step on a fixed state,
     captured once in a CUDA graph and replayed.
 
     The state's tensors are the graph's inputs and outputs: a chunk runs
@@ -471,16 +559,17 @@ class GraphedChunk:
         self.state = state
         self.max_steps = max_steps
         self.active_fn = lane_active if active_fn is None else active_fn
+        self.steps = steps = graph_steps(step)
         self.replays = 0
         dev = next(_tensor_leaves(state)).device
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
-            run_chunk(step, state)
+            run_chunk(step, state, steps)
         torch.cuda.current_stream(dev).wait_stream(side)
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.graph):
-            run_chunk(step, state)
+            run_chunk(step, state, steps)
 
     def replay(self) -> None:
         self.graph.replay()
@@ -517,7 +606,7 @@ def initial_state(workload: Workload, cfg: SimConfig,
     payload is the node index and the rank ``row - F_pad < 0``, so at
     equal time every fault pops before every pod event (tie ranks are >=
     0) and faults keep their array order (fks_tpu engine.py:167-181)."""
-    check_ported(workload, cfg)
+    check_config(cfg)
     c, p = workload.cluster, workload.pods
     dev = workload.device
     i32 = torch.int32
@@ -583,7 +672,7 @@ def build_step(workload: Workload, policy: PolicyFn, cfg: SimConfig,
     lane scalars are ``[L, 1]`` columns. With ``lane_trace`` the workload
     is a stack of traces and ``ktable`` their ``[T, K]`` snapshot tables
     (``parallel.traces.stack_traces``)."""
-    check_ported(workload, cfg)
+    check_config(cfg)
     p = workload.pods
     c = lane_cluster(workload.cluster, lane_trace)
     dev = workload.device
@@ -616,6 +705,7 @@ def build_step(workload: Workload, policy: PolicyFn, cfg: SimConfig,
             "cpu", "mem", "num_gpu", "gpu_milli")})
     has_faults = workload.faults is not None
     f_zero = torch.zeros((), dtype=f, device=dev)
+    prefilter_k = cfg.resolve_prefilter_k(c.n_padded)
 
     def step(s: SimState) -> SimState:
         lanes = s.lanes
@@ -655,12 +745,27 @@ def build_step(workload: Workload, policy: PolicyFn, cfg: SimConfig,
         # cluster
         nodes = _node_view(c, s.cpu_left, s.mem_left, s.gpu_left,
                            s.gpu_milli_left)
-        raw = policy(PodView(pcpu, pmem, pngpu, pmilli, pod_ct, pdur), nodes)
+        pview = PodView(pcpu, pmem, pngpu, pmilli, pod_ct, pdur)
+        if prefilter_k:
+            # the cordon mask feeds the ranking, so a cordoned node never
+            # outranks a feasible candidate
+            cand = prefilter_candidates(pview, nodes, place_mask,
+                                        prefilter_k)
+            nodes = gather_node_view(nodes, cand)
+        raw = policy(pview, nodes)
         raw, numeric_flags = guard_scores(raw, create[:, 0], s.numeric_flags,
                                           enabled=cfg.watchdog)
-        scores = torch.where(place_mask, raw, 0)
-        w = scores.argmax(dim=1, keepdim=True)  # first maximal index
-        placed = create & (scores.gather(1, w) > 0)
+        if prefilter_k:
+            # re-mask through the gather: the tail of a short candidate
+            # list is padding whatever the policy scored
+            scores = torch.where(_take(place_mask, cand), raw, 0)
+        else:
+            scores = torch.where(place_mask, raw, 0)
+        # wk indexes the scored view ([k] candidates or [N] nodes), w is
+        # the global node index
+        wk = scores.argmax(dim=1, keepdim=True)  # first maximal index
+        w = cand.gather(1, wk) if prefilter_k else wk
+        placed = create & (scores.gather(1, wk) > 0)
         sel, ok = alloc(
             s.gpu_milli_left.gather(1, w[:, :, None].expand(-1, 1, g))[:, 0],
             _node_rows(c.gpu_mask, w), pmilli[:, 0], pngpu[:, 0])
@@ -761,7 +866,7 @@ def build_step(workload: Workload, policy: PolicyFn, cfg: SimConfig,
             trace = trace_append(
                 trace, active=act, create=create[:, 0], is_del=is_del[:, 0],
                 was_waiting=waited[:, 0] != 0, pod=tpod, node=tnode,
-                scores=scores, winner=w, pending=heap.size,
+                scores=scores, winner=wk, pending=heap.size,
                 cpu_left=cpu_left, mem_left=mem_left, gpu_left=gpu_left,
                 gpu_milli_left=gml, **fault_kw)
 
@@ -803,11 +908,10 @@ def make_param_run_fn(workload: Workload, param_policy,
     ktable, max_steps = loop_tables(workload, cfg)
 
     def run(params, state: SimState) -> SimResult:
-        step = build_step(
-            workload, lambda pod, nodes: param_policy(params, pod, nodes),
-            cfg, ktable, max_steps)
-        return finalize(workload, cfg,
-                        run_batched_lanes(step, state, max_steps))
+        step = bind_step(build_step, workload, param_policy, params, cfg,
+                         ktable, max_steps)
+        return finalize(workload, cfg, run_batched_lanes(step, state,
+                                                         max_steps))
 
     return run
 
@@ -823,36 +927,46 @@ def make_run_fn(workload: Workload, policy: PolicyFn,
 def make_population_run_fn(workload: Workload, param_policy,
                            cfg: SimConfig = SimConfig()):
     """``run(params[P, ...], state0) -> SimResult`` over P lanes, where
-    ``state0`` is a one-lane ``initial_state``. On CUDA the first call for
-    a population size captures its ``GraphedChunk`` on a static copy of
-    the params and the state; later calls copy theirs in and replay, so
-    the result is copied out of the graph's state."""
+    ``state0`` is a one-lane ``initial_state`` and ``params`` a weight
+    matrix or any NamedTuple of ``[P, ...]`` tensors (a stacked
+    ``funsearch.vm.VMProgram``). On CUDA the first call for a population
+    size captures its ``GraphedChunk`` on a static copy of the params and
+    the state; later calls copy theirs in and replay (a program of
+    another capacity bucket needs its own runner), so the result is
+    copied out of the graph's state. ``run.graphs`` holds the captured
+    chunks by population size."""
+    return population_runner(workload, param_policy, cfg, build_step,
+                             finalize, lane_active)
+
+
+def population_runner(workload: Workload, param_policy, cfg: SimConfig,
+                      build_step_fn, finalize_fn, active_fn):
+    """The population runner of ``make_population_run_fn`` for either
+    engine, given its ``build_step``, ``finalize`` and ``lane_active``."""
     ktable, max_steps = loop_tables(workload, cfg)
     graphs = {}
 
     def build(params):
-        step = build_step(
-            workload, lambda pod, nodes: param_policy(params, pod, nodes),
-            cfg, ktable, max_steps)
-        step.params = params  # the graph's static input (copied into)
-        return step
+        return bind_step(build_step_fn, workload, param_policy, params, cfg,
+                         ktable, max_steps)
 
-    def run(params, state0: SimState) -> SimResult:
-        pop = params.shape[0]
-        if not params.is_cuda:
-            final = run_batched_lanes(build(params),
-                                      broadcast_state(state0, pop), max_steps)
-            return finalize(workload, cfg, final)
+    def run(params, state0):
+        pop = batch_size(params)
+        state = broadcast_state(state0, pop)
+        if not next(_tensor_leaves(state0)).is_cuda:
+            final = run_batched_lanes(build(params), state, max_steps,
+                                      active_fn)
+            return finalize_fn(workload, cfg, final)
         chunk = graphs.get(pop)
         if chunk is None:
-            chunk = GraphedChunk(build(params.clone()),
-                                 broadcast_state(state0, pop), max_steps)
+            chunk = GraphedChunk(build(clone_tensors(params)), state,
+                                 max_steps, active_fn)
             graphs[pop] = chunk
         else:
-            chunk.step.params.copy_(params)
-            copy_state_(chunk.state, broadcast_state(state0, pop))
+            copy_tensors_(chunk.step.params, params)
+            copy_state_(chunk.state, state)
         return map_tensors(torch.clone,
-                            finalize(workload, cfg, chunk.run()))
+                           finalize_fn(workload, cfg, chunk.run()))
 
     run.graphs = graphs
     return run
@@ -865,3 +979,112 @@ def simulate(workload: Workload, policy: PolicyFn,
     one lane (no lane axis)."""
     wl = workload.to(resolve_device(device))
     return make_run_fn(wl, policy, cfg)(initial_state(wl, cfg)).lane(0)
+
+
+# ------------------------------------------------- prefilter auto-enable
+#
+# fks_tpu's measurement (PROFILE.md round 11, flat CPU): top-k node
+# prefiltering pays 13-16x when the per-node policy is expensive (the VM
+# code-candidate tier) and loses (~0.6x) when it is cheap (parametric dot
+# products), where the step is queue-dominated and the gather is pure
+# overhead. The break-even is a property of the policy's cost per call, so
+# the heuristic keys on a measured probe. The constants are fks_tpu's,
+# measured on its CPU; the card's probe values are in PERF.md.
+
+#: k chosen when the heuristic enables prefiltering (the winning setting
+#: of fks_tpu's sweep at 1k nodes)
+PREFILTER_AUTO_K = 64
+#: policy cost above which prefiltering wins (fks_tpu: parametric ~2e-5 s
+#: per call, VM code candidates ~1e-3 s; the threshold sits an order of
+#: magnitude clear of both)
+PREFILTER_COST_THRESHOLD_S = 2e-4
+#: below this node count the dense sweep is cheap whatever the policy
+PREFILTER_MIN_NODES = 256
+#: static per-node work bound below which a policy is trivially cheap and
+#: the probe is skipped (fks_tpu.analysis CostEstimate.work; its producer
+#: waits for the port of analysis/candidate.py)
+PREFILTER_WORK_HINT_MIN = 16
+
+
+def probe_policy_cost(param_policy, params, n_padded: int, g_padded: int,
+                      reps: int = 5, device=None) -> float:
+    """Steady-state wall seconds of one policy call at the padded cluster
+    shape, one lane: the bare policy on all-ones views on ``device``
+    (default ``cuda``), the first call excluded, the minimum over ``reps``
+    timed calls. On CUDA each call sits between two
+    ``torch.cuda.synchronize()``. ``params`` are one candidate's."""
+    import time as _time
+
+    dev = resolve_device(device)
+    params = map_tensors(lambda x: x.to(dev), params)
+
+    def ones(*shape, dtype=torch.int32):
+        return torch.ones(shape, dtype=dtype, device=dev)
+
+    pod = PodView(*(ones(1, 1) for _ in range(6)))
+    vn, vg = ones(1, n_padded), ones(1, n_padded, g_padded)
+    nodes = NodeView(vn, vn, vn, vn, vn, vn, vg, vg, vg,
+                     ones(1, n_padded, g_padded, dtype=torch.bool),
+                     ones(1, n_padded, dtype=torch.bool))
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    param_policy(params, pod, nodes)  # warm-up, excluded
+    best = float("inf")
+    for _ in range(max(1, reps)):
+        sync()
+        t0 = _time.perf_counter()
+        param_policy(params, pod, nodes)
+        sync()
+        best = min(best, _time.perf_counter() - t0)
+    return best
+
+
+def auto_prefilter_k(n_padded: int, policy_cost_s: Optional[float], *,
+                     override: Optional[int] = None,
+                     k: int = PREFILTER_AUTO_K,
+                     threshold_s: float = PREFILTER_COST_THRESHOLD_S,
+                     min_nodes: int = PREFILTER_MIN_NODES) -> int:
+    """Pick ``SimConfig.node_prefilter_k`` from a measured policy cost: an
+    explicit ``override`` always wins; otherwise prefiltering turns on iff
+    the node axis has at least ``min_nodes`` nodes and one policy call
+    costs more than ``threshold_s``. A cost of None ("unknown") keeps the
+    dense sweep."""
+    if override is not None:
+        return int(override)
+    if n_padded < min_nodes:
+        return 0
+    if policy_cost_s is None or policy_cost_s <= threshold_s:
+        return 0
+    return k
+
+
+def resolve_auto_prefilter(param_policy, params, n_padded: int,
+                           g_padded: int, *, override: Optional[int] = None,
+                           recorder=None, work_hint: Optional[int] = None,
+                           device=None, **heuristic_kw) -> int:
+    """``auto_prefilter_k`` with the timing probe run only when its answer
+    can matter: an override, a small node axis or a ``work_hint`` below
+    ``PREFILTER_WORK_HINT_MIN`` skips it. Records a ``prefilter_auto``
+    event on ``recorder`` (default: ``obs.recorder.get_recorder()``) so a
+    run shows why k was chosen."""
+    from fks_tpu_torch.obs.recorder import get_recorder
+
+    rec = recorder if recorder is not None else get_recorder()
+    if override is not None:
+        return int(override)
+    min_nodes = heuristic_kw.get("min_nodes", PREFILTER_MIN_NODES)
+    if n_padded < min_nodes:
+        return 0
+    if work_hint is not None and work_hint < PREFILTER_WORK_HINT_MIN:
+        rec.event("prefilter_auto", policy_cost_s=None,
+                  work_hint=int(work_hint), chosen_k=0, n_padded=n_padded)
+        return 0
+    cost = probe_policy_cost(param_policy, params, n_padded, g_padded,
+                             device=device)
+    chosen = auto_prefilter_k(n_padded, cost, **heuristic_kw)
+    rec.event("prefilter_auto", policy_cost_s=round(cost, 7),
+              chosen_k=chosen, n_padded=n_padded)
+    return chosen

@@ -32,8 +32,12 @@ The step updates the queue tensors (``ev_time``, ``aux``, ``aux_gpus``,
 ``pod_ctime``, ``wait_hist``, ``fault_time``, the trace) in place instead
 of copying them per event.
 
-Not ported yet (a ValueError names the slice): ``node_prefilter_k``,
-``state_pack`` and the segmented runner.
+Large clusters: ``SimConfig.node_prefilter_k`` scores only each event's
+first k feasible nodes (``engine.prefilter_candidates``); ``state_pack``
+stores the columns whose range provably fits 16 bits at the workload's
+shape in int16 (``_pack_dtypes``), widening to int32 for arithmetic, so
+policies see int32 views and results are bit-identical;
+``make_segmented_population_run`` bounds the length of one device call.
 """
 from __future__ import annotations
 
@@ -47,15 +51,19 @@ from fks_tpu_torch.device import resolve_device
 from fks_tpu_torch.ops.allocator import best_fit_gpus, first_fit_gpus
 from fks_tpu_torch.ops.heap import KIND_NODE_UP
 from fks_tpu_torch.sim.engine import (
-    FinalView, SimConfig, _audit, _cluster_totals, _node_rows, _node_view,
-    _pod_rows, _take, broadcast_state, check_ported, finalize_fields,
-    hist_size, lane_cluster, lane_table, loop_tables, run_batched_lanes,
-    trace_append,
+    SYNC_EVERY, FinalView, GraphedChunk, SimConfig, _audit, _cluster_totals,
+    _node_rows, _node_view, _pod_rows, _take, _tensor_leaves,
+    bind_step, broadcast_state, check_config,
+    copy_state_, finalize_fields, gather_node_view, hist_size,
+    lane_cluster, lane_table, loop_tables, population_runner,
+    prefilter_candidates, run_batched_lanes, trace_append,
 )
 from fks_tpu_torch.sim.guards import guard_scores
 from fks_tpu_torch.sim.types import (
-    FlatState, PodView, PolicyFn, SimResult, empty_trace,
+    FlatState, PodView, PolicyFn, SimResult, batch_size, clone_tensors,
+    copy_tensors_, empty_trace, map_tensors,
 )
+from fks_tpu_torch.utils.segments import segment_budget, validate_seg_steps
 
 INF = 2**31 - 1  # empty-slot sentinel (int32 max)
 
@@ -70,6 +78,54 @@ def _node_bits(n_padded: int) -> int:
 def _packable(n_padded: int, g_padded: int) -> bool:
     """Can (node, gpu_bits) share one non-negative int32?"""
     return _node_bits(n_padded) + g_padded <= 31
+
+
+def _pack_dtypes(cfg: SimConfig, c, p) -> dict:
+    """Per-column state dtypes under ``SimConfig.state_pack``
+    (fks_tpu.sim.flat._pack_dtypes, the same proofs). A column narrows to
+    16 bits only when its full value range fits at this workload's shape:
+    per-GPU milli capacity <= 32767 for ``gpu_milli_left``, the declared
+    GPU count for ``gpu_left``, the pod count for ``wait_hist`` (a bucket
+    cannot count more waiting pods), the node/GPU encoding width for
+    ``aux`` (the -1/-2 sentinels need the sign bit, so the packed encoding
+    must fit 14 value bits) and G <= 16 for ``aux_gpus``, whose bit
+    pattern is stored in a signed int16 (PyTorch's uint16 supports few
+    operations) and widened before any bit operation. Columns that cannot
+    prove their range stay wide, so the knob degrades to a no-op, never to
+    wraparound."""
+    i16, i32 = torch.int16, torch.int32
+    if not cfg.state_pack:
+        return dict(aux=i32, aux_gpus=torch.int64, wait_hist=i32,
+                    gpu_left=i32, gpu_milli_left=i32)
+    n, g = c.n_padded, c.g_padded
+    if _packable(n, g):
+        aux_fits = _node_bits(n) + g <= 14
+    else:
+        aux_fits = n <= 32767  # unpacked aux holds a bare node index
+    max_pg_milli = int(c.gpu_milli_total.max()) if c.gpu_milli_total.numel() \
+        else 0
+    max_gd = int(c.gpu_declared.max()) if c.gpu_declared.numel() else 0
+    num_real = int(p.pod_mask.sum())
+    return dict(
+        aux=i16 if aux_fits else i32,
+        aux_gpus=i16 if g <= 16 else torch.int64,
+        wait_hist=i16 if num_real <= 32767 else i32,
+        gpu_left=i16 if max_gd <= 32767 else i32,
+        gpu_milli_left=i16 if max_pg_milli <= 32767 else i32,
+    )
+
+
+def _wide_bits(bits: torch.Tensor) -> torch.Tensor:
+    """A GPU bitmask column as i64, whatever its stored width (an int16
+    column holds a uint16 bit pattern)."""
+    if bits.dtype == torch.int16:
+        return bits.to(torch.int64) & 0xFFFF
+    return bits
+
+
+def state_bytes(state) -> int:
+    """Bytes of every tensor of a state (the ``state_pack`` saving)."""
+    return sum(x.numel() * x.element_size() for x in _tensor_leaves(state))
 
 
 def runs_every_branch(device: torch.device) -> bool:
@@ -89,10 +145,11 @@ def initial_state(workload: Workload, cfg: SimConfig,
                   lanes: int = 1) -> FlatState:
     """t=0 carry for ``lanes`` identical lanes on the workload's device:
     every real pod's slot (tie-rank order) holds its CREATE time."""
-    check_ported(workload, cfg)
+    check_config(cfg)
     c, p, fe = workload.cluster, workload.pods, workload.faults
     dev = workload.device
     i32 = torch.int32
+    dt = _pack_dtypes(cfg, c, p)
     perm = rank_perm(p.pod_mask, p.tie_rank)
     ev_time = torch.where(p.pod_mask[perm], p.creation_time[perm], INF)
     pp = p.p_padded
@@ -104,18 +161,19 @@ def initial_state(workload: Workload, cfg: SimConfig,
     zeros = torch.zeros(lanes, dtype=i32, device=dev)
     return FlatState(
         ev_time=lane(ev_time.to(i32)),
-        aux=torch.full((lanes, pp), AUX_FRESH, dtype=i32, device=dev),
+        aux=torch.full((lanes, pp), AUX_FRESH, dtype=dt["aux"],
+                       device=dev),
         aux_gpus=(None if _packable(c.n_padded, c.g_padded)
-                  else torch.zeros((lanes, pp), dtype=torch.int64,
+                  else torch.zeros((lanes, pp), dtype=dt["aux_gpus"],
                                    device=dev)),
         pending=torch.full((lanes,), int(p.pod_mask.sum()), dtype=i32,
                            device=dev),
         cpu_left=lane(c.cpu_total), mem_left=lane(c.mem_total),
-        gpu_left=lane(c.gpu_declared),
-        gpu_milli_left=lane(c.gpu_milli_total),
+        gpu_left=lane(c.gpu_declared.to(dt["gpu_left"])),
+        gpu_milli_left=lane(c.gpu_milli_total.to(dt["gpu_milli_left"])),
         pod_ctime=lane(p.creation_time[perm]),
-        wait_hist=torch.zeros((lanes, hist_size(workload, cfg)), dtype=i32,
-                              device=dev),
+        wait_hist=torch.zeros((lanes, hist_size(workload, cfg)),
+                              dtype=dt["wait_hist"], device=dev),
         events_processed=zeros, snap_idx=zeros.clone(),
         snap_sums=torch.zeros((lanes, 4), dtype=f, device=dev),
         frag_sum=torch.zeros(lanes, dtype=f, device=dev),
@@ -156,7 +214,7 @@ def build_step(workload: Workload, policy: PolicyFn, cfg: SimConfig,
     branches only ever add masked-out zeros, so skipping them changes no
     result. On CUDA every branch runs, so the step never waits for the
     card to answer "does any lane need it"."""
-    check_ported(workload, cfg)
+    check_config(cfg)
     p = workload.pods
     c = lane_cluster(workload.cluster, lane_trace)
     dev = workload.device
@@ -196,6 +254,7 @@ def build_step(workload: Workload, policy: PolicyFn, cfg: SimConfig,
         flt_up = lane_table(workload.faults.kind == KIND_NODE_UP, lane_trace)
 
     every = runs_every_branch(dev)
+    prefilter_k = cfg.resolve_prefilter_k(n)
 
     def needed(mask: torch.Tensor) -> bool:
         return every or bool(mask.any())
@@ -226,21 +285,23 @@ def build_step(workload: Workload, policy: PolicyFn, cfg: SimConfig,
             pod_act = act
         pcpu, pmem, pngpu, pmilli, pdur = _pod_rows(
             feat, col[:, 0], tix).split(1, dim=1)
-        aux_s = s.aux.gather(1, col)
+        aux_s = s.aux.gather(1, col).to(i32)  # state_pack: widen
         is_del = pod_act & (aux_s >= 0)
         create = pod_act & (aux_s < 0)
         was_waiting = aux_s == AUX_WAITING
         gpu_pod = pngpu > 0
         held_node = aux_s >> g if packed else aux_s
 
-        # ---- DELETION: refund the held node and GPUs
+        # ---- DELETION: refund the held node and GPUs. Arithmetic runs in
+        # int32 whatever the stored widths (state_pack), so the policy sees
+        # int32 views
         cpu_left, mem_left = s.cpu_left, s.mem_left
-        gpu_left, gml = s.gpu_left, s.gpu_milli_left
+        gpu_left, gml = s.gpu_left.to(i32), s.gpu_milli_left.to(i32)
         if needed(is_del):
             if packed:
                 held_bits = (aux_s & ((1 << g) - 1)).to(i64)
             else:
-                held_bits = s.aux_gpus.gather(1, col)
+                held_bits = _wide_bits(s.aux_gpus.gather(1, col))
             oh_a = ((n_iota == held_node) & is_del).to(i32)  # [L, N]
             cpu_left = cpu_left + oh_a * pcpu
             mem_left = mem_left + oh_a * pmem
@@ -251,19 +312,31 @@ def build_step(workload: Workload, policy: PolicyFn, cfg: SimConfig,
 
         # ---- CREATION: strict argmax placement, ties to the lowest node
         placed = pl = alloc_fail = no
-        w = torch.zeros((lanes, 1), dtype=torch.int64, device=dev)
-        scores = torch.zeros((lanes, n), dtype=i32, device=dev)
+        w = wk = torch.zeros((lanes, 1), dtype=torch.int64, device=dev)
+        scores = torch.zeros((lanes, prefilter_k or n), dtype=i32,
+                             device=dev)
         new_bits = torch.zeros((lanes, 1), dtype=i64, device=dev)
         numeric_flags = s.numeric_flags
         if needed(create):
             pod = PodView(pcpu, pmem, pngpu, pmilli, t, pdur)
             nodes = _node_view(c, cpu_left, mem_left, gpu_left, gml)
+            if prefilter_k:
+                # the cordon mask feeds the ranking itself
+                cand = prefilter_candidates(pod, nodes, place_mask,
+                                            prefilter_k)
+                nodes = gather_node_view(nodes, cand)
             raw, numeric_flags = guard_scores(
                 policy(pod, nodes), create[:, 0], numeric_flags,
                 enabled=cfg.watchdog)
-            scores = torch.where(place_mask, raw, 0)
-            w = scores.argmax(dim=1, keepdim=True)  # first maximal index
-            placed = create & (scores.gather(1, w) > 0)
+            if prefilter_k:
+                # re-mask through the gather: a short list's tail is padding
+                scores = torch.where(_take(place_mask, cand), raw, 0)
+            else:
+                scores = torch.where(place_mask, raw, 0)
+            # wk indexes the scored view, w is the global node index
+            wk = scores.argmax(dim=1, keepdim=True)  # first maximal index
+            w = cand.gather(1, wk) if prefilter_k else wk
+            placed = create & (scores.gather(1, wk) > 0)
         if needed(placed):
             rows = torch.arange(lanes, device=dev)
             sel, ok = alloc(gml[rows, w[:, 0]], _node_rows(c.gpu_mask, w),
@@ -285,7 +358,8 @@ def build_step(workload: Workload, policy: PolicyFn, cfg: SimConfig,
         if any_fail or needed(pl):
             hdelta = ((failp & ~was_waiting & gpu_pod).to(i32)
                       - (pl & was_waiting & gpu_pod).to(i32))
-            hist.scatter_add_(1, pmilli.clamp(0, hist.shape[1] - 1), hdelta)
+            hist.scatter_add_(1, pmilli.clamp(0, hist.shape[1] - 1),
+                              hdelta.to(hist.dtype))
         frag_sum = s.frag_sum
         retry = dropped = no
         rt = t  # any value: only read where retry
@@ -313,10 +387,12 @@ def build_step(workload: Workload, policy: PolicyFn, cfg: SimConfig,
         enc = (w.to(i32) << g) | new_bits.to(i32) if packed else w.to(i32)
         new_aux = torch.where(pl, enc, torch.where(failp, AUX_WAITING, aux_s))
         s.ev_time.scatter_(1, col, torch.where(pod_act, new_t, t))
-        s.aux.scatter_(1, col, torch.where(pod_act, new_aux, aux_s))
+        s.aux.scatter_(1, col, torch.where(pod_act, new_aux, aux_s).to(
+            s.aux.dtype))
         if not packed:
             s.aux_gpus.scatter_(1, col, torch.where(
-                pl, new_bits, s.aux_gpus.gather(1, col)))
+                pl, new_bits, _wide_bits(s.aux_gpus.gather(1, col))).to(
+                    s.aux_gpus.dtype))
         if cfg.track_ctime:
             s.pod_ctime.scatter_(1, col, torch.where(
                 retry, rt, s.pod_ctime.gather(1, col)))
@@ -372,13 +448,15 @@ def build_step(workload: Workload, policy: PolicyFn, cfg: SimConfig,
             trace = trace_append(
                 trace, active=act[:, 0], create=create[:, 0],
                 is_del=is_del[:, 0], was_waiting=was_waiting[:, 0],
-                pod=tpod, node=tnode, scores=scores, winner=w,
+                pod=tpod, node=tnode, scores=scores, winner=wk,
                 pending=trace_pending, cpu_left=cpu_left, mem_left=mem_left,
                 gpu_left=gpu_left, gpu_milli_left=gml, **fault_kw)
 
         return dataclasses.replace(
             s, pending=pending, cpu_left=cpu_left, mem_left=mem_left,
-            gpu_left=gpu_left, gpu_milli_left=gml, events_processed=events,
+            gpu_left=gpu_left.to(s.gpu_left.dtype),
+            gpu_milli_left=gml.to(s.gpu_milli_left.dtype),
+            events_processed=events,
             snap_idx=snap_idx, snap_sums=snap_sums, frag_sum=frag_sum,
             frag_count=s.frag_count + failp[:, 0].to(i32),
             max_nodes=max_nodes, failed=s.failed | alloc_fail[:, 0],
@@ -398,13 +476,14 @@ def run_lanes(step, s: FlatState, max_steps: int) -> FlatState:
 def decode_assignment(aux, aux_gpus, g: int, packed: bool):
     """(assigned_node i32, assigned_gpus i64) from the aux encoding, slot
     order. Placed pods keep aux >= 0 after their DELETE fires."""
+    aux = aux.to(torch.int32)  # state_pack: widen
     placed = aux >= 0
     if packed:
         an = torch.where(placed, aux >> g, -1)
         ag = torch.where(placed, aux & ((1 << g) - 1), 0).to(torch.int64)
     else:
         an = torch.where(placed, aux, -1)
-        ag = torch.where(placed, aux_gpus, 0)
+        ag = torch.where(placed, _wide_bits(aux_gpus), 0)
     return an.to(torch.int32), ag
 
 
@@ -421,8 +500,10 @@ def finalize(workload: Workload, cfg: SimConfig, s: FlatState,
     view = FinalView(
         assigned_node=an.gather(1, inv), assigned_gpus=ag.gather(1, inv),
         pod_ctime=s.pod_ctime.gather(1, inv), cpu_left=s.cpu_left,
-        mem_left=s.mem_left, gpu_left=s.gpu_left,
-        gpu_milli_left=s.gpu_milli_left,
+        mem_left=s.mem_left,
+        # widen packed columns: result dtypes do not depend on state_pack
+        gpu_left=s.gpu_left.to(torch.int32),
+        gpu_milli_left=s.gpu_milli_left.to(torch.int32),
         events_processed=s.events_processed, snap_idx=s.snap_idx,
         snap_sums=s.snap_sums, frag_sum=s.frag_sum,
         frag_count=s.frag_count, max_nodes=s.max_nodes, failed=s.failed,
@@ -442,10 +523,10 @@ def make_param_run_fn(workload: Workload, param_policy,
     ktable, max_steps = loop_tables(workload, cfg)
 
     def run(params, state: FlatState) -> SimResult:
-        step = build_step(
-            workload, lambda pod, nodes: param_policy(params, pod, nodes),
-            cfg, ktable, max_steps)
-        return finalize(workload, cfg, run_lanes(step, state, max_steps))
+        step = bind_step(build_step, workload, param_policy, params, cfg,
+                         ktable, max_steps)
+        return finalize(workload, cfg, run_batched_lanes(
+            step, state, max_steps, lane_active))
 
     return run
 
@@ -462,10 +543,148 @@ def make_population_run_fn(workload: Workload, param_policy,
                            cfg: SimConfig = SimConfig()):
     """``run(params[P, ...], state0) -> SimResult`` over P lanes: one host
     loop whose body is the lane-batched self-masking step. ``state0`` is a
-    one-lane ``initial_state``; ``param_policy(params, pod, nodes)``."""
-    run = make_param_run_fn(workload, param_policy, cfg)
-    return lambda params, state0: run(
-        params, broadcast_state(state0, params.shape[0]))
+    one-lane ``initial_state``; ``param_policy(params, pod, nodes)``. On
+    CUDA one captured ``GraphedChunk`` per population size, as in the
+    exact engine (``engine.population_runner``)."""
+    return population_runner(workload, param_policy, cfg, build_step,
+                             finalize, lane_active)
+
+
+def make_segmented_population_run(workload: Workload, param_policy,
+                                  cfg: SimConfig = SimConfig(),
+                                  seg_steps: int = 4096, on_segment=None,
+                                  double_buffer: bool = True):
+    """``make_population_run_fn`` with a bounded device-call length
+    (fks_tpu.sim.flat.make_segmented_population_run): the lanes advance
+    one segment of at most ``seg_steps`` events (rounded up to whole
+    graph replays) at a time, and the host decides between segments
+    whether to go on.
+
+    On CUDA a segment is a run of replays of the population's
+    ``GraphedChunk`` (captured at the first segment, reused by later runs
+    of the same population size). After each replay the any-active flag
+    is copied to pinned host memory behind a CUDA event; the host waits
+    only on the flag of the replay two back, so two replays stay queued
+    and the card never waits for the host, and a segment whose lanes
+    have drained ends there, as fks_tpu's segment loop does. On the CPU a
+    segment runs ``SYNC_EVERY`` eager steps at a time and ends when no
+    lane is active. The steps are self-masking, so the results equal the
+    unsegmented runner's.
+
+    ``double_buffer`` (default on) enqueues segment i+1 before it reads
+    segment i's flag, so the loop runs one segment past the draining one
+    (a no-op, since ``lane_active`` is monotonic, which ends after its
+    first replays). ``double_buffer=False`` reads each segment's flag
+    before enqueuing the next.
+
+    ``on_segment`` (zero-argument callable) fires on the host after every
+    segment is enqueued. The number of segments is bounded by
+    ``utils.segments.segment_budget``; reaching it with a lane still
+    active raises RuntimeError instead of finalizing a partial state.
+
+    The returned ``run(params, state0)`` exposes ``run.advance(params,
+    state) -> (state, flag)`` (one segment; ``flag`` a device bool
+    tensor), ``run.finalize_pop(state)``, ``run.seg_steps`` and
+    ``run.graphs`` (the captured chunks by population size)."""
+    seg_steps = validate_seg_steps(seg_steps, zero_disables=False)
+    ktable, max_steps = loop_tables(workload, cfg)
+    graphs = {}
+
+    def build(params):
+        return bind_step(build_step, workload, param_policy, params, cfg,
+                         ktable, max_steps)
+
+    def any_active(state):
+        return lane_active(state, max_steps).any()
+
+    def advance(params, state: FlatState):
+        """One segment from ``state`` (advanced in place on CUDA, where it
+        becomes the population graph's own state): ``(state, flag)``."""
+        if not state.ev_time.is_cuda:
+            step = build(params)
+            for _ in range(-(-seg_steps // SYNC_EVERY)):
+                for _ in range(SYNC_EVERY):
+                    state = step(state)
+                if not bool(any_active(state)):
+                    break
+            return state, any_active(state)
+        lanes = state.lanes
+        chunk = graphs.get(lanes)
+        done = 0
+        if chunk is None:
+            # construction runs the chunk once eagerly (its warm-up)
+            chunk = GraphedChunk(build(clone_tensors(params)), state,
+                                 max_steps, lane_active)
+            graphs[lanes] = chunk
+            done = 1
+        else:
+            copy_tensors_(chunk.step.params, params)
+            if chunk.state is not state:
+                copy_state_(chunk.state, state)
+        flags = []
+        for _ in range(done, -(-seg_steps // chunk.steps)):
+            chunk.replay()
+            flags.append(_observe(any_active(chunk.state)))
+            if len(flags) > 2 and not _read(flags.pop(0)):
+                break  # drained two replays ago
+        return chunk.state, any_active(chunk.state)
+
+    def finalize_pop(state: FlatState) -> SimResult:
+        return finalize(workload, cfg, state)
+
+    def run(params, state0: FlatState) -> SimResult:
+        state = broadcast_state(state0, batch_size(params))
+        pending = []  # observed segment flags not yet read
+        # the double-buffered loop reads a flag that lags one segment, so
+        # it needs one more observation segment in the budget
+        for _ in range(segment_budget(max_steps, seg_steps,
+                                      slack=2 if double_buffer else 1)):
+            state, flag = advance(params, state)
+            if on_segment is not None:
+                on_segment()
+            pending.append(_observe(flag))
+            # double buffered: read segment i's flag once i+1 is enqueued
+            if len(pending) == (2 if double_buffer else 1) \
+                    and not _read(pending.pop(0)):
+                break
+        else:  # budget spent: the newest segment's flag decides
+            if _read(pending[-1]):
+                # the budget is exact for lockstep lanes: reaching it
+                # with a live lane means the step and predicate diverged
+                raise RuntimeError(
+                    "segmented runner exhausted its segment budget with "
+                    "lanes still active — cond/step divergence in the "
+                    "flat engine")
+        res = finalize_pop(state)
+        return map_tensors(torch.clone, res) if state.ev_time.is_cuda \
+            else res
+
+    run.advance = advance
+    run.finalize_pop = finalize_pop
+    run.seg_steps = seg_steps
+    run.graphs = graphs
+    return run
+
+
+def _observe(flag: torch.Tensor):
+    """Start reading a device flag: a non-blocking copy to pinned host
+    memory and an event behind it (the CPU tensor as it is)."""
+    if not flag.is_cuda:
+        return flag
+    host = torch.empty((), dtype=torch.bool, pin_memory=True)
+    host.copy_(flag, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record()
+    return host, event
+
+
+def _read(obs) -> bool:
+    """Finish reading an observed flag (waits on its event only)."""
+    if isinstance(obs, torch.Tensor):
+        return bool(obs)
+    host, event = obs
+    event.synchronize()
+    return bool(host)
 
 
 def simulate(workload: Workload, policy: PolicyFn,

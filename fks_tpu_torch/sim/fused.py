@@ -112,10 +112,13 @@ def _build_plan(workload: Workload, cfg: SimConfig,
     if cfg.node_prefilter_k:
         raise ValueError("top-k node prefiltering (SimConfig."
                          "node_prefilter_k) is not supported in the fused "
-                         "kernel")
+                         "kernel — its fixed-function policy already "
+                         "sweeps nodes in one fused pass; use "
+                         "engine='flat' for the large-cluster scale tier")
     if cfg.state_pack:
         raise ValueError("packed state dtypes (SimConfig.state_pack) are "
-                         "not supported in the fused kernel")
+                         "not supported in the fused kernel; use "
+                         "engine='flat' for the large-cluster scale tier")
     if cfg.watchdog:
         raise ValueError("the numerics watchdog (SimConfig.watchdog) is not "
                          "supported in the fused kernel; use engine='exact' "

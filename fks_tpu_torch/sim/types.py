@@ -249,14 +249,57 @@ class SimResult:
 
 
 def map_tensors(fn, obj):
-    """A copy of a dataclass of tensors with ``fn`` applied to every
-    tensor, nested dataclasses included; None fields stay None."""
+    """A copy of ``obj`` with ``fn`` applied to every tensor: a tensor, a
+    NamedTuple of tensors (a policy's params, e.g. ``funsearch.vm.
+    VMProgram``) or a dataclass of tensors, nested ones included; None
+    stays None."""
+    if obj is None:
+        return None
+    if isinstance(obj, torch.Tensor):
+        return fn(obj)
+    if isinstance(obj, tuple) and hasattr(obj, "_fields"):
+        return type(obj)(*(map_tensors(fn, v) for v in obj))
     kw = {}
     for f in dataclasses.fields(obj):
         v = getattr(obj, f.name)
-        if dataclasses.is_dataclass(v):
+        if dataclasses.is_dataclass(v) or isinstance(v, torch.Tensor) or (
+                isinstance(v, tuple) and hasattr(v, "_fields")):
             v = map_tensors(fn, v)
-        elif isinstance(v, torch.Tensor):
-            v = fn(v)
         kw[f.name] = v
     return dataclasses.replace(obj, **kw)
+
+
+def tensor_leaves(obj):
+    """Every tensor of ``obj`` (as ``map_tensors`` visits them), in
+    order."""
+    out = []
+    map_tensors(lambda x: out.append(x) or x, obj)
+    return out
+
+
+def batch_size(params) -> int:
+    """The lane count of a population's params: the leading size of its
+    first tensor (a weight matrix ``[P, F]`` or a stacked program)."""
+    return int(tensor_leaves(params)[0].shape[0])
+
+
+def as_params(params):
+    """A population's params as tensors: a NamedTuple of tensors (a
+    stacked program) as it is, anything else through ``torch.as_tensor``
+    (weight matrices may arrive as numpy)."""
+    if isinstance(params, tuple) and hasattr(params, "_fields"):
+        return params
+    return torch.as_tensor(params)
+
+
+def clone_tensors(obj):
+    """A copy of ``obj`` with every tensor cloned."""
+    return map_tensors(torch.clone, obj)
+
+
+def copy_tensors_(dst, src) -> None:
+    """Write every tensor of ``src`` into the same-shaped ``dst`` (a
+    captured graph's static state or params)."""
+    for a, b in zip(tensor_leaves(dst), tensor_leaves(src)):
+        if a is not b:
+            a.copy_(b)

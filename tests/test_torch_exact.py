@@ -364,11 +364,16 @@ def test_simulate_needs_a_card_unless_asked_for_the_cpu(mod, monkeypatch):
     dict(node_prefilter_k=2), dict(state_pack=True),
     dict(state_pack=True, decision_trace=True)])
 def test_unported_flags_raise_in_exact_engine(flag):
+    """The large-cluster knobs, once rejected here, now run (state_pack is
+    accepted and ignored, as in fks_tpu): each equals fks_tpu's exact run
+    with the same flags, and only a negative k raises."""
     wl = port_workload(_roomy())
-    with pytest.raises(ValueError, match="later slice"):
-        engine.initial_state(wl, SimConfig(**flag))
-    with pytest.raises(ValueError, match="later slice"):
-        engine.simulate(wl, zoo.best_fit(), SimConfig(**flag), device="cpu")
+    res = engine.simulate(wl, zoo.best_fit(), SimConfig(**flag),
+                          device="cpu")
+    ref = jengine.simulate(_roomy(), jzoo.best_fit(), JaxConfig(**flag))
+    assert_result_matches(res, result_fields(ref))
+    with pytest.raises(ValueError, match="node_prefilter_k must be >= 0"):
+        engine.initial_state(wl, SimConfig(node_prefilter_k=-1))
 
 
 def test_get_engine():

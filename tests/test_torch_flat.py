@@ -123,11 +123,15 @@ def test_zoo_simulate_matches(name):
     dict(node_prefilter_k=2), dict(state_pack=True),
     dict(state_pack=True, decision_trace=True)])
 def test_unported_flags_raise(flag):
+    """The large-cluster knobs, once rejected here, now run: each equals
+    fks_tpu's flat run with the same flags, and only a negative k raises
+    (tests/test_torch_scale.py holds the knobs in full)."""
     wl = port_workload(_roomy())
-    with pytest.raises(ValueError, match="later slice"):
-        flat.initial_state(wl, SimConfig(**flag))
-    with pytest.raises(ValueError, match="later slice"):
-        flat.simulate(wl, zoo.best_fit(), SimConfig(**flag), device="cpu")
+    res = flat.simulate(wl, zoo.best_fit(), SimConfig(**flag), device="cpu")
+    ref = jflat.simulate(_roomy(), jzoo.best_fit(), JaxConfig(**flag))
+    assert_result_matches(res, result_fields(ref))
+    with pytest.raises(ValueError, match="node_prefilter_k must be >= 0"):
+        flat.initial_state(wl, SimConfig(node_prefilter_k=-1))
 
 
 @pytest.mark.parametrize("flag", [

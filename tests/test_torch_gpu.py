@@ -8,9 +8,14 @@ the GPU machine with
 
     python -m pytest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
 
-The file imports only torch, so it runs where JAX is not installed.
+The file imports only torch, so it runs where JAX is not installed. The
+code-candidate tier (the funsearch VM against the transpiled policy) and
+the large-cluster tier (the prefilter, packed state, the segmented
+runner) are held here too.
 """
 import gc
+import json
+import pathlib
 
 import pytest
 import torch
@@ -154,3 +159,106 @@ def test_suite_eval_on_card_matches_cpu(cuda, eng):
         for dev in (cuda, "cpu")]
     assert rows[0] == rows[1]
     assert sum(r["kind"] in ("NODE_DOWN", "NODE_UP") for r in rows[0]) == 2
+
+
+def _on(dev, nt):
+    return type(nt)(*(x.to(dev) for x in nt))
+
+
+def test_vm_on_card_equals_transpiled(cuda):
+    """The funsearch VM's integer scores on the card equal the transpiled
+    policy's on the card and on the CPU, for the two seeds and a
+    champion, in float64 and float32; the CPU's are held to fks_tpu by
+    tests/test_torch_vm.py and tests/test_torch_transpiler.py."""
+    from fks_tpu_torch.funsearch import template, transpiler, vm
+
+    champion = pathlib.Path(__file__).resolve().parent.parent / (
+        "policies/discovered/funsearch_20260801_045536_score0.5365.json")
+    codes = list(template.seed_policies().values()) + [
+        json.loads(champion.read_text())["code"]]
+    pod, nodes, _ = random_policy_views(4, lanes=64, gpu_heavy=True)
+    card = (_on(cuda, pod), _on(cuda, nodes))
+    for dtype in (torch.float64, torch.float32):
+        for code in codes:
+            want = transpiler.transpile(code, dtype=dtype)(pod, nodes)
+            prog = vm.compile_policy(code, 16, 8, dtype=dtype)
+            got = vm.score_static(_on(cuda, prog), *card).cpu()
+            assert torch.equal(got, want)
+            assert torch.equal(transpiler.transpile(code, dtype=dtype)(
+                *card).cpu(), want)
+
+
+def test_code_replay_on_card_matches_cpu(cuda):
+    """A candidate replayed on the VM through ``policy_params(code=)``
+    (a CPU program, moved to the card by the replay) traces the CPU's
+    rows and scores the CPU's fitness."""
+    from fks_tpu_torch.funsearch import template
+
+    wl = synthetic_workload(3, 40, seed=0)
+    fn, prog = tracing.policy_params(
+        wl, code=template.seed_policies()["best_fit"], capacity=256)
+    got, want = (tracing.replay(wl, "exact", fn, prog, device=dev)
+                 for dev in (cuda, "cpu"))
+    assert tracing.extract_trace(got) == tracing.extract_trace(want)
+    assert float(got.policy_score) == float(want.policy_score)
+
+
+@pytest.mark.parametrize("eng", ["exact", "flat"])
+def test_vm_suite_eval_on_card_matches_cpu(cuda, eng):
+    """A stacked program population through the suite (trace-batch) path
+    on the card: its captured graph holds one VM step
+    (``vm.score_static.graph_steps``), and its results equal the CPU's."""
+    from fks_tpu_torch.funsearch import template, vm
+
+    suite = get_suite("smoke3", synthetic_workload(4, 24, seed=3))
+    c = suite.workloads[0].cluster
+    stacked = vm.stack_programs([
+        vm.compile_policy(code, c.n_padded, c.g_padded)
+        for code in template.seed_policies().values()])
+    evaluate = make_suite_eval(suite, vm.score_static, population=True,
+                               engine=eng, device=cuda)
+    got = evaluate(stacked)
+    assert [chunk.steps for chunk in evaluate.graphs.values()] == [1]
+    want = make_suite_eval(suite, vm.score_static, population=True,
+                           engine=eng, device="cpu")(stacked)
+    assert_result_matches(got, result_fields(want), rtol=0, atol=0)
+
+@pytest.mark.parametrize("eng", ["exact", "flat"])
+def test_prefilter_on_card_matches_cpu(cuda, eng):
+    """node_prefilter_k (with state_pack, which the exact engine ignores)
+    through captured graphs equals the CPU's run and the dense sweep, on
+    a faulted smoke3 lane."""
+    from fks_tpu_torch.sim import get_engine
+
+    suite = get_suite("smoke3", synthetic_workload(4, 24, seed=3))
+    wl = suite.workloads[2]
+    mod = get_engine(eng)
+    policy = zoo.ZOO["first_fit"]()
+    cfg = SimConfig(node_prefilter_k=2, state_pack=True)
+    got = mod.simulate(wl, policy, cfg, device=cuda)
+    assert_result_matches(got, result_fields(
+        mod.simulate(wl, policy, cfg, device="cpu")), rtol=0, atol=0)
+    dense = mod.simulate(wl, policy, SimConfig(), device=cuda)
+    assert torch.equal(got.assigned_node, dense.assigned_node)
+
+
+@pytest.mark.parametrize("double_buffer", [True, False])
+def test_segmented_on_card_equals_unsegmented(cuda, double_buffer):
+    """The segmented runner (graph replays, pinned flags behind events)
+    equals the unsegmented runner on the card, twice in a row (the second
+    run reuses the captured graph), with the prefilter and packing on."""
+    from fks_tpu_torch.sim import flat
+
+    wl = synthetic_workload(16, 96, seed=4).to(cuda)
+    cfg = SimConfig(track_ctime=False, node_prefilter_k=4, state_pack=True)
+    params = parametric.seed_weights("first_fit")[None].repeat(3, 1).to(cuda)
+    base = flat.make_population_run_fn(wl, parametric.score, SimConfig(
+        track_ctime=False))(params, flat.initial_state(wl, SimConfig(
+            track_ctime=False)))
+    run = flat.make_segmented_population_run(
+        wl, parametric.score, cfg, seg_steps=40,
+        double_buffer=double_buffer)
+    for _ in range(2):
+        seg = run(params, flat.initial_state(wl, cfg))
+        assert_result_matches(seg, result_fields(base), rtol=0, atol=0)
+    assert len(run.graphs) == 1

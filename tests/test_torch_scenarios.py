@@ -277,10 +277,15 @@ def test_rejections(smoke3):
             suite.workloads[0], SimConfig(decision_trace=True), device="cpu")
     with pytest.raises(ValueError, match="parallel/mesh.py"):
         make_sharded_suite_eval(suite)
-    for mod in (engine, flat):
-        for flag in (dict(node_prefilter_k=2), dict(state_pack=True)):
-            with pytest.raises(ValueError, match="next: node_prefilter_k"):
-                mod.initial_state(suite.workloads[2], SimConfig(**flag))
+    for flag in (dict(node_prefilter_k=2), dict(state_pack=True)):
+        # the scale knobs run on fault workloads in both engines; the
+        # fused kernel still refuses them
+        for mod in (engine, flat):
+            mod.initial_state(suite.workloads[2], SimConfig(**flag))
+        with pytest.raises(ValueError, match="large-cluster scale tier"):
+            fused.make_fused_population_run(
+                synthetic_workload(4, 24, seed=3), SimConfig(**flag),
+                device="cpu")
 
 
 # ------------------------------------------------- the full default trace

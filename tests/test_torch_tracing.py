@@ -187,8 +187,12 @@ def test_errors():
     assert params is None
     with pytest.raises(ValueError, match="unknown policy"):
         tracing.policy_params(wl, "nope")
-    with pytest.raises(ValueError, match="funsearch VM"):
+    # candidate source runs on the funsearch VM, after the sandbox's
+    # validation; candidate_trace_diff waits for the evolution slice
+    with pytest.raises(ValueError, match="exactly one function"):
         tracing.policy_params(wl, code="def score(pod, node): return 1")
+    with pytest.raises(ValueError, match="evolution"):
+        tracing.candidate_trace_diff(None, "def score(pod, node): return 1")
     # replaying a fault workload in a flat run of a different policy
     flt = perturb_workload(synthetic_workload(4, 24, seed=3),
                            ScenarioSpec("f", seed=2, fault_nodes=1))
