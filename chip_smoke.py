@@ -72,10 +72,28 @@ Phases (any failure raises and exits non-zero):
    identical, events/s of each and the flat state's bytes with and
    without packing; the first_fit seed program on the VM (4 lanes,
    capacity 256) on 1,000 nodes x 96 pods, dense against k = 64: ms per
-   step of each, their ratio, fitness drift 0; ``probe_policy_cost`` on
-   the card for ``parametric.score`` and ``vm.score_static`` and the k
-   ``resolve_auto_prefilter`` picks for each;
-11. one ``{"kernels": [...]}`` line, then the last line
+   step of each, their ratio, fitness drift 0;
+11. the FunSearch evolve loop (``funsearch.evolution``; plain PyTorch
+   replayed as CUDA graphs, and the fused kernel in (d)): (a)
+   ``evolution.run`` with ``FakeLLM(seed=7)``, the exact engine and the VM
+   tier on the default cluster with the first 256 pods, the WAL, the
+   checkpoint and the champion files: per-generation stats, the final
+   population and best held to ``tests/fixtures/evolve_prefix256_pins.json``
+   (fks_tpu's run; integers exact, scores within 1e-9), every VM candidate
+   served by a batched launch (a fallback fails the phase); (b) the same
+   loop with budget halving (smoke3 probe, default8 full rung), one
+   generation, held to its pins, the champion a full-rung survivor; (c)
+   the 0.5365 champion through the transpiled tier on the full trace,
+   within 1e-6 of its file's score; (d) ``ParametricEvolution`` at pop 256
+   on the fused kernel seeded by ``init_from_weights`` (lane 0 the
+   champion), 2 generations + checkpoint + restore + 1 equal to 3 in a
+   row, ``best_code()`` scored on the card; (e) ``probe_policy_cost``
+   for ``parametric.score`` and ``vm.score_static`` at N = 1,000 (graph
+   replays timed with CUDA events, and the eager host-wall reading it
+   replaced) and the k ``resolve_auto_prefilter`` picks. (a)-(d) print
+   seconds, capacity buckets, lanes per launch, launches and replays,
+   candidate evals/s and ms per step;
+12. one ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the fks_tpu package.
@@ -233,7 +251,7 @@ def exact_phase(dev, wl, params, card) -> None:
     batched = evaluate(params)  # the capture included (well under 1 s)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    graphed = evaluate.run.graphs[pop]
+    graphed = next(iter(evaluate.run.graphs.values()))
     lane_steps = graphed.state.steps.double()
     scores = batched.policy_score
     if scores.shape != (pop,) or not bool(torch.isfinite(scores).all()) \
@@ -346,7 +364,7 @@ def scenario_phase(dev, wl, params, card) -> None:
     batched = evaluate(cands)  # the capture included
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    steps = evaluate.graphs[cands.shape[0]].state.steps.double()
+    steps = next(iter(evaluate.graphs.values())).state.steps.double()
     scores = batched.policy_score
     if scores.shape != (32, len(suite)) \
             or not bool(torch.isfinite(scores).all()) \
@@ -399,7 +417,7 @@ def scenario_phase(dev, wl, params, card) -> None:
     # engine twice with the trace on, and its recorder keeps every row
     i1 = suite.names.index("fault1")
     w1 = suite.workloads[i1]
-    rec = RowRecorder()
+    rec = Rows()
     t0 = time.perf_counter()
     spec = ("exact", "exact", parametric.score, params[4])
     record = tracing.trace_diff(w1, [spec, ("exact-again",) + spec[1:]],
@@ -407,7 +425,8 @@ def scenario_phase(dev, wl, params, card) -> None:
                                 device=dev)
     if record["divergent"]:
         raise AssertionError(tracing.format_diff(record))
-    rows = rec.rows["exact"]
+    rows = next(f["events"] for kind, f in rec.rows
+                if kind == "decision_trace" and f["engine"] == "exact")
     fault_rows = sum(r["kind"] in ("NODE_DOWN", "NODE_UP") for r in rows)
     score = record["scores"]["exact"]
     if score != float(alone.policy_score[i1]) \
@@ -524,7 +543,7 @@ def code_phase(dev, card) -> dict:
                                  f"fks_tpu pins by {worst:.3g} > 1e-9")
         # steady step time: replays of the finished state run every op
         # slot of every step (the card skips no work for idle lanes)
-        graphed = evaluate.run.graphs[lanes]
+        graphed = next(iter(evaluate.run.graphs.values()))
         step_ms = cuda_ms(graphed.replay, 3) / graphed.steps
         longest = int(graphed.state.steps.max())
         out[eng] = {"s_per_eval": wall, "longest_steps": longest,
@@ -557,10 +576,11 @@ def code_phase(dev, card) -> dict:
     return out
 
 
-def scale_phase(dev, card) -> dict:
+def scale_phase(dev, card):
     """Phase 10 (module docstring): 1,000 nodes — the prefilter, packed
     state and the segmented runner against the dense sweep, parametric and
-    VM, and the auto-prefilter probe on the card."""
+    VM. Returns the numbers the summary line carries and the probe inputs
+    of phase 11e."""
     import torch
 
     from fks_tpu_torch.data.synthetic import synthetic_workload
@@ -638,7 +658,7 @@ def scale_phase(dev, card) -> dict:
                                                  seg_steps=16384)
         res, wall = timed(lambda: run(stacked,
                                       flat.initial_state(wl_v, cfg)))
-        chunk = run.graphs[pop]
+        chunk = next(iter(run.graphs.values()))
         step_ms = cuda_ms(chunk.replay, 3) / chunk.steps
         vm_out[label] = (res, step_ms, wall)
     drift = float((vm_out["prefilter"][0].policy_score
@@ -657,35 +677,353 @@ def scale_phase(dev, card) -> dict:
         f"{vm_out['prefilter'][2]:.2f} s with the capture; fitness drift "
         f"{drift} (every integer field identical)")
 
-    # (c) the auto-prefilter probe on the card at N = 1,000
-    n, g = wl.cluster.n_padded, wl.cluster.g_padded
+    log(f"[scale] phase {time.perf_counter() - t_phase:.1f} s")
+    # the auto-prefilter probe's inputs at N = 1,000, for phase 11e
+    return out, (wl.cluster.n_padded, wl.cluster.g_padded, first_fit, prog)
+
+
+EVOLVE_TIME_FIELDS = ("eval_seconds", "llm_seconds", "budget_device_seconds")
+
+
+class Rows:
+    """A recorder (``obs.recorder`` API, disabled) that keeps its rows."""
+
+    enabled = False
+
+    def __init__(self):
+        self.rows = []
+
+    def event(self, kind, **fields):
+        self.rows.append((kind, fields))
+
+    def metric(self, kind, record=None, **fields):
+        self.rows.append((kind, dict(record or {}, **fields)))
+
+    def heartbeat(self):
+        pass
+
+    def finish(self, status="ok"):
+        pass
+
+    def close(self):
+        pass
+
+    def spans(self, label):
+        return [f for k, f in self.rows if k == "span" and f["label"] == label]
+
+
+def held_to_pins(name, fs, pin):
+    """A FunSearch run against its fks_tpu pins: per generation the stats
+    without their time fields, the final population and best as
+    (canonical-key sha1, score); integers exact, floats within 1e-9."""
+    import dataclasses
+    import hashlib
+
+    from fks_tpu_torch.funsearch import transpiler
+
+    def sha(code):
+        return hashlib.sha1(transpiler.canonical_key(code).encode()).hexdigest()
+
+    def close(got, want, where):
+        if isinstance(want, float) and isinstance(got, float):
+            if abs(got - want) > 1e-9:
+                raise AssertionError(f"{name} {where}: {got!r} vs fks_tpu "
+                                     f"pin {want!r}")
+        elif isinstance(want, dict):
+            if sorted(got) != sorted(want):
+                raise AssertionError(f"{name} {where}: keys differ")
+            for k in want:
+                close(got[k], want[k], f"{where}.{k}")
+        elif isinstance(want, list):
+            if len(got) != len(want):
+                raise AssertionError(f"{name} {where}: {got} vs pin {want}")
+            for i, (a, b) in enumerate(zip(got, want)):
+                close(a, b, f"{where}[{i}]")
+        elif got != want:
+            raise AssertionError(f"{name} {where}: {got!r} vs fks_tpu pin "
+                                 f"{want!r}")
+
+    gens = [{k: v for k, v in dataclasses.asdict(h).items()
+             if k not in EVOLVE_TIME_FIELDS} for h in fs.history]
+    close(gens, pin["generations"], "generations")
+    close([[sha(c), sc] for c, sc in fs.population], pin["population"],
+          "population")
+    close([sha(fs.best[0]), fs.best[1]], pin["best"], "best")
+
+
+def graph_report(*caches):
+    """Capacity buckets, launches' lane counts, replays and ms per step
+    (replays of each captured graph, timed after its run) of the runners'
+    graph caches (``sim.engine.graph_key`` -> ``GraphedChunk``)."""
+    caps, lanes, replays, ms = set(), [], 0, []
+    for graphs in caches:
+        for key, chunk in graphs.items():
+            shape = key[1][0] if len(key) > 1 else ()
+            if shape:
+                caps.add(shape[-1])
+            lanes.append(key[0])
+            replays += chunk.replays
+            ms.append(cuda_ms(chunk.replay, 2) / chunk.steps)
+    return sorted(caps), lanes, replays, ms
+
+
+def evolve_phase(dev, card, probe_inputs) -> dict:
+    """Phase 11 (module docstring): the FunSearch evolve loop on the card,
+    the transpiled tier on the full trace, ParametricEvolution's resume on
+    the fused kernel and the graph-timed auto-prefilter probe. Returns the
+    numbers the summary line carries."""
+    import re
+    import tempfile
+
+    import torch
+
+    from fks_tpu_torch import obs
+    from fks_tpu_torch.convert import load_champion_weights
+    from fks_tpu_torch.data import TraceParser
+    from fks_tpu_torch.funsearch import (
+        BudgetConfig, CodeEvaluator, EvolutionConfig, FakeLLM, FunSearch,
+        ParametricEvolution, evolution, transpiler, vm,
+    )
+    from fks_tpu_torch.models import parametric
+    from fks_tpu_torch.resilience import GenerationWAL
+    from fks_tpu_torch.scenarios import RobustConfig, get_suite
+    from fks_tpu_torch.sim import engine, fused
+    from fks_tpu_torch.sim.engine import SimConfig
+    from fks_tpu_torch.sim.types import NodeView, PodView
+
+    t_phase = time.perf_counter()
+    pins = json.loads((ROOT / "tests" / "fixtures"
+                       / "evolve_prefix256_pins.json").read_text())
+    wl = TraceParser().parse_workload(max_pods=pins["pods"])
+    cfg = SimConfig(score_dtype=torch.float64)
+    out = {}
+    tmp = tempfile.TemporaryDirectory()
+    work = Path(tmp.name)
+
+    def quiet(_msg):
+        pass
+
+    def report(tag, wall, caps, lanes, launches, replays, evals, ms):
+        per_step = ", ".join(f"{m:.3f}" for m in ms)
+        log(f"[evolve] {tag}: {wall:.2f} s; VM capacity bucket(s) {caps}; "
+            f"lanes per launch {lanes}; {launches} launches, {replays} "
+            f"graph replays; {evals:.4f} candidate evals/s; ms per step "
+            f"(replays) [{per_step}]; card {card}")
+        return {"seconds": wall, "capacity_buckets": caps,
+                "lanes_per_launch": lanes, "launches": launches,
+                "replays": replays, "candidate_evals_per_s": evals,
+                "ms_per_step": ms}
+
+    def per_generation(fs):
+        """Mean seconds of a generation's LLM and evaluate stages (the
+        loop's own clocks; evaluate ends with the copy to the host)."""
+        return sum(h.llm_seconds + h.eval_seconds
+                   for h in fs.history) / len(fs.history)
+
+    # (a) FunSearch, VM tier, exact engine, first 256 pods, with the WAL,
+    # the checkpoint and the champion files
+    rec = Rows()
+    t0 = time.perf_counter()
+    with obs.recording(rec):
+        fs = evolution.run(
+            wl, EvolutionConfig(**pins["evolve"]["config"]),
+            backend=FakeLLM(seed=7), sim_config=cfg,
+            checkpoint_path=str(work / "evo.json"),
+            wal_path=str(work / "wal.jsonl"), out_dir=str(work / "out"),
+            engine="exact", log=quiet, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    held_to_pins("evolve", fs, pins["evolve"])
+    ev = fs.evaluator
+    batches = rec.spans("vm_batch")
+    batched = sum(f["candidates"] for f in batches)
+    if ev.vm_batch_fallbacks or batched != ev.vm_count \
+            or ev.vm_batch_count != len(batches) or len(batches) < 3:
+        raise AssertionError(
+            f"not every VM candidate went through the batched launch: "
+            f"{batched} of {ev.vm_count} in {len(batches)} launches, "
+            f"{ev.vm_batch_fallbacks} fallbacks")
+    if GenerationWAL(str(work / "wal.jsonl")).summary()["committed"] != \
+            [1, 2] or json.loads((work / "evo.json").read_text())[
+                "generation"] != 2:
+        raise AssertionError("the WAL or the checkpoint missed a generation")
+    top = json.loads(Path(fs.save_top_policies(str(work / "out"),
+                                               k=5)).read_text())
+    best_path = Path(fs.save_best_policy(str(work / "out")))
+    best = json.loads(best_path.read_text())
+    if [e["rank"] for e in top] != list(range(1, len(top) + 1)) \
+            or any(set(e) != {"rank", "score", "generation", "code",
+                              "timestamp"} for e in top) \
+            or set(best) != {"score", "generation", "code", "timestamp"} \
+            or not re.fullmatch(r"funsearch_\d{8}_\d{6}_score\d\.\d{4}\.json",
+                                best_path.name) \
+            or best["score"] != fs.best[1]:
+        raise AssertionError(f"champion files off fks_tpu's schema: "
+                             f"{best_path.name} {sorted(best)}")
+    caps, _, replays, ms = graph_report(ev._vm_pop_run.graphs)
+    out["a"] = report(
+        f"(a) FunSearch {len(fs.history)} generations, exact engine, VM "
+        f"tier, first {pins['pods']} pods, best {fs.best[1]:.12f}; stats, "
+        f"population and best equal the fks_tpu pins; {ev.vm_count} "
+        f"candidates all in batched launches; WAL, checkpoint and champion "
+        f"files in fks_tpu's schema; {per_generation(fs):.2f} s per "
+        f"generation", wall, caps,
+        [f["lanes"] for f in batches], ev.vm_batch_count, replays,
+        ev.vm_count / sum(f["seconds"] for f in batches), ms)
+    out["a"]["s_per_generation"] = per_generation(fs)
+
+    # (b) the same loop with the budget rungs: smoke3 probe, default8 full
+    bcfg = pins["budget"]["config"]
+    bev = CodeEvaluator(
+        wl, cfg, engine="exact", suite=get_suite(bcfg["scenario_suite"], wl),
+        robust=RobustConfig(), device=dev,
+        budget=BudgetConfig(schedule=bcfg["budget_schedule"],
+                            probe_suite=bcfg["probe_suite"]))
+    records = []
+    evaluate = bev.evaluate
+
+    def keep(codes):
+        got = evaluate(codes)
+        records.extend(got)
+        return got
+
+    bev.evaluate = keep
+    rec = Rows()
+    t0 = time.perf_counter()
+    with obs.recording(rec):
+        bfs = FunSearch(bev, EvolutionConfig(**bcfg),
+                        backend=FakeLLM(seed=7), log=quiet)
+        bfs.run_evolution()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    held_to_pins("budget", bfs, pins["budget"])
+    rung = {r.code: r.budget_rung for r in records}
+    if rung.get(bfs.best[0]) != 1 or bev.vm_batch_fallbacks:
+        raise AssertionError(f"the budget champion is not a full-rung "
+                             f"survivor (rung {rung.get(bfs.best[0])})")
+    rungs = rec.spans("budget_rung")
+    caps, _, replays, ms = graph_report(
+        bev._vm_pop_run.graphs, bev._budget_eval._probe_run.graphs)
+    out["b"] = report(
+        f"(b) budget halving smoke3 -> default8, 1 generation, best "
+        f"{bfs.best[1]:.12f} (a full-rung survivor), pruned "
+        f"{bfs.history[-1].budget_pruned}; equal to the fks_tpu pins; "
+        f"{per_generation(bfs):.2f} s per generation", wall,
+        caps, [f["lanes"] for f in rungs], bev.vm_batch_count, replays,
+        bev.vm_count / sum(f["seconds"] for f in rungs), ms)
+    out["b"]["s_per_generation"] = per_generation(bfs)
+
+    # (c) the transpiled tier on the full default trace
+    full = TraceParser().parse_workload()
+    champ = json.loads(CHAMPION.read_text())
+    tev = CodeEvaluator(full, cfg, engine="exact", use_vm=False, device=dev)
+    t0 = time.perf_counter()
+    alone = tev.evaluate_one(champ["code"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    diff = abs(alone.score - champ["score"])
+    if not alone.ok or diff > 1e-6:
+        raise AssertionError(f"the 0.5365 champion scores {alone.score} on "
+                             f"the transpiled tier, its file {champ['score']}"
+                             f" ({alone.error})")
+    (graphed,) = (fn.graphs for fn in tev._cache.values())
+    _, lanes, replays, ms = graph_report(graphed)
+    out["c"] = report(
+        f"(c) the 0.5365 champion through the transpiled tier on the full "
+        f"trace (8152 pods, exact engine): {alone.score:.12f}, |diff| "
+        f"{diff:.3g} from its file's {champ['score']}", wall, "none",
+        lanes, tev.compile_count, replays, 1 / wall, ms)
+    out["c"]["diff"] = diff
+
+    # (d) ParametricEvolution on the fused kernel: init_from_weights, and a
+    # checkpoint after 2 generations resumed for 1 equal to 3 in a row
+    weights = load_champion_weights(CHAMPION, device=dev)
+    fcfg = SimConfig(track_ctime=False)
+
+    def seeded():
+        pe = ParametricEvolution(full, pop_size=POP, cfg=fcfg, engine="fused",
+                                 seed=0, device=dev)
+        pe.init_from_weights(weights, 0.05, seed=0)
+        return pe
+
+    fused.fused_sim.launches = 0
+    t0 = time.perf_counter()
+    straight = seeded()
+    if not torch.equal(straight.params[0], weights):
+        raise AssertionError("init_from_weights moved lane 0")
+    torch.cuda.synchronize()
+    t_gen = time.perf_counter()
+    straight.run(3)
+    torch.cuda.synchronize()
+    s_per_gen = (time.perf_counter() - t_gen) / 3
+    half = seeded()
+    half.run(2)
+    resumed = seeded()
+    resumed.restore_checkpoint(half.save_checkpoint(str(work / "pe")))
+    resumed.run(1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fused.fused_sim.launches
+    if not launches:
+        raise AssertionError("ParametricEvolution never launched the kernel")
+    if not torch.equal(resumed.params, straight.params) \
+            or resumed.best_score != straight.best_score:
+        raise AssertionError("the resumed fused run differs from the "
+                             "uninterrupted one")
+    code = resumed.best_code()
+    transpiler.transpile(code)
+    scored = tev.evaluate_one(code)
+    if not scored.ok or not 0 < scored.score <= 1:
+        raise AssertionError(f"best_code() does not score: {scored.error}")
+    out["d"] = report(
+        f"(d) ParametricEvolution pop {POP}, fused kernel, full trace: lane "
+        f"0 == the champion; 2 generations + checkpoint + restore + 1 == 3 "
+        f"in a row (params and best {resumed.best_score:.6f} equal); "
+        f"best_code() scores {scored.score:.6f} on the transpiled tier; "
+        f"{s_per_gen:.4f} s per generation; 6 generations and the "
+        f"best_code eval", wall, "none", [POP], launches, 0,
+        POP / s_per_gen, [])
+    out["d"]["s_per_generation"] = s_per_gen
+
+    # (e) the auto-prefilter probe at N = 1,000: captured-graph replays
+    # timed with CUDA events, against the eager host-wall reading it
+    # replaced (each call between two synchronizes)
+    n, g, first_fit, prog = probe_inputs
     probes = {}
     for name, policy, prm in (("parametric", parametric.score, first_fit),
                               ("vm", vm.score_static, prog)):
+        on_card = type(prm)(*(x.to(dev) for x in prm)) \
+            if isinstance(prm, tuple) else prm.to(dev)
+        pod = PodView(*(torch.ones(1, 1, dtype=torch.int32, device=dev)
+                        for _ in range(6)))
+        vn = torch.ones(1, n, dtype=torch.int32, device=dev)
+        vg = torch.ones(1, n, g, dtype=torch.int32, device=dev)
+        nodes = NodeView(vn, vn, vn, vn, vn, vn, vg, vg, vg, vg.bool(),
+                         vn.bool())
+        policy(on_card, pod, nodes)
+        host = float("inf")
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            policy(on_card, pod, nodes)
+            torch.cuda.synchronize()
+            host = min(host, time.perf_counter() - t0)
         cost = engine.probe_policy_cost(policy, prm, n, g, device=dev)
-        chosen = engine.resolve_auto_prefilter(policy, prm, n, g,
-                                               device=dev)
-        probes[name] = {"cost_s": cost, "k": chosen}
+        chosen = engine.resolve_auto_prefilter(policy, prm, n, g, device=dev)
+        probes[name] = {"graph_s": cost, "host_wall_s": host, "k": chosen}
     out["probe"] = probes
-    log(f"[scale] probe_policy_cost at N={n}, G={g}: parametric.score "
-        f"{probes['parametric']['cost_s'] * 1e6:.1f} us (auto k="
-        f"{probes['parametric']['k']}), vm.score_static capacity 256 "
-        f"{probes['vm']['cost_s'] * 1e6:.1f} us (auto k="
-        f"{probes['vm']['k']}); threshold "
-        f"{engine.PREFILTER_COST_THRESHOLD_S * 1e6:.0f} us; phase "
-        f"{time.perf_counter() - t_phase:.1f} s")
+    log(f"[evolve] (e) probe_policy_cost at N={n}, G={g} (graph replays, "
+        f"CUDA events): parametric.score "
+        f"{probes['parametric']['graph_s'] * 1e6:.1f} us (eager host wall "
+        f"{probes['parametric']['host_wall_s'] * 1e6:.1f} us), auto k="
+        f"{probes['parametric']['k']}; vm.score_static capacity 256 "
+        f"{probes['vm']['graph_s'] * 1e6:.1f} us (eager host wall "
+        f"{probes['vm']['host_wall_s'] * 1e6:.1f} us), auto k="
+        f"{probes['vm']['k']}; threshold "
+        f"{engine.PREFILTER_COST_THRESHOLD_S * 1e6:.0f} us; card {card}")
+    tmp.cleanup()
+    log(f"[evolve] phase {time.perf_counter() - t_phase:.1f} s")
     return out
-
-
-class RowRecorder:
-    """A recorder (``obs.recorder`` API) that keeps each replay's rows."""
-
-    def __init__(self):
-        self.rows = {}
-
-    def event(self, kind, **fields):
-        if kind == "decision_trace":
-            self.rows[fields["engine"]] = fields["events"]
 
 
 def main() -> int:
@@ -711,7 +1049,8 @@ def main() -> int:
         contended_workload, roomy_workload, tied_workload,
     )
     for name in ("golden_default.json", "golden_micro.json",
-                 "golden_scenario_fault.json", "vm_prefix512_pins.json"):
+                 "golden_scenario_fault.json", "vm_prefix512_pins.json",
+                 "evolve_prefix256_pins.json"):
         if not (ROOT / "tests" / "fixtures" / name).is_file():
             raise SystemExit(f"chip_smoke.py needs tests/fixtures/{name}")
 
@@ -876,9 +1215,12 @@ def main() -> int:
     summary = {"code": code_phase(dev, card)}
 
     # ---- 10. 1,000 nodes
-    summary["scale"] = scale_phase(dev, card)
+    summary["scale"], probe_inputs = scale_phase(dev, card)
 
-    # ---- 11. summary
+    # ---- 11. the evolve loop
+    summary["evolve"] = evolve_phase(dev, card, probe_inputs)
+
+    # ---- 12. summary
     log(f"[summary] {json.dumps(summary)}")
     log(f"[card] {card}")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

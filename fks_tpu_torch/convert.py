@@ -97,3 +97,28 @@ def vm_program_from_numpy(leaves, dtype=None, device="cpu"):
             out[name] = _tensor(a, np.int32)
     return VMProgram(**out) if device == "cpu" else VMProgram(
         **{k: v.to(device) for k, v in out.items()})
+
+
+def device_evolution_state_from_npz(path, device="cpu") -> dict:
+    """The state of an fks_tpu ``ParametricEvolution.save_checkpoint``
+    file for a port instance's ``load_state``: ``params`` and
+    ``best_params`` as f32 tensors on ``device``, ``best_score``,
+    ``generation``, ``real_count`` and ``history`` (the [gens, 3] rows) as
+    fks_tpu wrote them. fks_tpu's ``key`` is a JAX PRNG key, which no
+    ``torch.Generator`` state can express, so it is not carried: a run
+    continued from a converted checkpoint draws other mutations than
+    fks_tpu's continuation would."""
+    path = str(path)
+    if not path.endswith(".npz"):
+        path += ".npz"
+    with np.load(path) as d:
+        best = np.asarray(d["best_params"], np.float32)
+        return {
+            "params": params_from_numpy(d["params"], device),
+            "best_params": (params_from_numpy(best, device) if best.size
+                            else torch.zeros(0, device=device)),
+            "best_score": float(d["best_score"]),
+            "generation": int(d["generation"]),
+            "real_count": int(d["real_count"]),
+            "history": np.asarray(d["history"], np.float64).reshape(-1, 3),
+        }

@@ -444,20 +444,72 @@ def _lanes(x: torch.Tensor, lanes: int, per_op: bool) -> torch.Tensor:
     return x.expand((lanes,) + tuple(x.shape))
 
 
+def _col(va, vb, vc, ck, g_iota, out):
+    lanes, n, g = out.shape
+    out.copy_(va.gather(2, ck.expand(lanes, n, 1)).expand(out.shape))
+
+
+# The 33 opcode branches in opcode order: ``branch(va, vb, vc, ck, g_iota,
+# out)`` writes the op's value into ``out`` [L, N, G] (a comparison writes
+# its 0/1 straight into the float register); ``ck`` [L, 1, 1] is the
+# COL / SETCOL column.
+_BRANCHES = (
+    lambda va, vb, vc, ck, gi, out: out.copy_(va),  # NOP: operand a
+    lambda va, vb, vc, ck, gi, out: torch.add(va, vb, out=out),
+    lambda va, vb, vc, ck, gi, out: torch.sub(va, vb, out=out),
+    lambda va, vb, vc, ck, gi, out: torch.mul(va, vb, out=out),
+    lambda va, vb, vc, ck, gi, out: torch.div(va, vb, out=out),
+    lambda va, vb, vc, ck, gi, out: torch.maximum(va, vb, out=out),
+    lambda va, vb, vc, ck, gi, out: torch.minimum(va, vb, out=out),
+    lambda va, vb, vc, ck, gi, out: torch.ge(va, vb, out=out),
+    lambda va, vb, vc, ck, gi, out: torch.gt(va, vb, out=out),
+    lambda va, vb, vc, ck, gi, out: torch.lt(va, vb, out=out),
+    lambda va, vb, vc, ck, gi, out: torch.le(va, vb, out=out),
+    lambda va, vb, vc, ck, gi, out: torch.eq(va, vb, out=out),
+    lambda va, vb, vc, ck, gi, out: torch.ne(va, vb, out=out),
+    lambda va, vb, vc, ck, gi, out: torch.where(va > 0.5, vc, vb, out=out),
+    lambda va, vb, vc, ck, gi, out: torch.trunc(va, out=out),
+    lambda va, vb, vc, ck, gi, out: torch.floor(va, out=out),
+    lambda va, vb, vc, ck, gi, out: torch.ceil(va, out=out),
+    lambda va, vb, vc, ck, gi, out: torch.abs(va, out=out),
+    lambda va, vb, vc, ck, gi, out: torch.sign(va, out=out),
+    # isfinite: x - x is +0 exactly for finite x, NaN for inf and NaN
+    lambda va, vb, vc, ck, gi, out: torch.eq(va - va, 0, out=out),
+    lambda va, vb, vc, ck, gi, out: torch.fmod(va, vb, out=out),  # trunc rem
+    lambda va, vb, vc, ck, gi, out: torch.pow(va, vb, out=out),
+    lambda va, vb, vc, ck, gi, out: torch.exp(va, out=out),
+    lambda va, vb, vc, ck, gi, out: torch.log(va, out=out),
+    lambda va, vb, vc, ck, gi, out: torch.sqrt(va, out=out),
+    lambda va, vb, vc, ck, gi, out: torch.sin(va, out=out),
+    lambda va, vb, vc, ck, gi, out: torch.cos(va, out=out),
+    lambda va, vb, vc, ck, gi, out: torch.tan(va, out=out),
+    _col,
+    lambda va, vb, vc, ck, gi, out: out.copy_(
+        va.sum(dim=2, keepdim=True).expand(out.shape)),
+    lambda va, vb, vc, ck, gi, out: out.copy_(
+        va.amax(dim=2, keepdim=True).expand(out.shape)),
+    lambda va, vb, vc, ck, gi, out: out.copy_(
+        va.amin(dim=2, keepdim=True).expand(out.shape)),
+    # SETCOL: column ck := vb
+    lambda va, vb, vc, ck, gi, out: torch.where(gi == ck, vb, va, out=out),
+)
+assert len(_BRANCHES) == N_OPCODES
+
+
 def _execute(prog: VMProgram, pod: PodView, nodes: NodeView,
              bound: int) -> torch.Tensor:
     """Run ``bound`` op slots of ``prog`` (one program shared by every
-    lane, or one per lane) over each lane's views: i32[L, N]."""
+    lane, or one per lane) over each lane's views: i32[L, N].
+
+    Per-lane programs compute every branch at each slot and gather each
+    lane's (no host read, so the loop captures in a CUDA graph). One
+    program (unstacked, or a stack of one) whose op table sits on the host
+    (the CPU path) runs only its own op at each slot: the same branch
+    code, so the same values."""
     f = prog.dtype
     inp = _inputs(pod, nodes, f)
     lanes, n, g = inp.shape[1:]
     dev = inp.device
-    ar = torch.arange(lanes, device=dev)
-    opcode = _lanes(prog.opcode, lanes, True).long()
-    abc = torch.stack([_lanes(prog.a, lanes, True), _lanes(prog.b, lanes, True),
-                       _lanes(prog.c, lanes, True)], dim=1).long()  # [L, 3, O]
-    imm = _lanes(prog.imm, lanes, True)
-    col = imm.to(torch.int64).clamp(0, g - 1)  # COL / SETCOL column
     consts = _lanes(prog.consts, lanes, True)  # [L, CONST_POOL]
     pool = consts.T[:, :, None, None].expand(-1, -1, n, g)
     op_base = N_INPUTS + consts.shape[1]
@@ -466,52 +518,39 @@ def _execute(prog: VMProgram, pod: PodView, nodes: NodeView,
     regs[:N_INPUTS] = inp
     regs[N_INPUTS:op_base] = pool
     g_iota = torch.arange(g, device=dev)
-    shape = (lanes, n, g)
-    # every branch writes its slice of one table (no stack copy); a
-    # comparison writes its 0/1 straight into the float table
-    table = torch.empty((N_OPCODES,) + shape, dtype=f, device=dev)
-    t = table.unbind(0)
-    for k in range(bound):
-        opnd = regs[abc[:, :, k], ar[:, None]]  # [L, 3, N, G]
-        va, vb, vc = opnd[:, 0], opnd[:, 1], opnd[:, 2]
-        ck = col[:, k, None, None]  # [L, 1, 1]
-        t[OP_NOP].copy_(va)  # NOP: the value of operand a
-        torch.add(va, vb, out=t[OP_ADD])
-        torch.sub(va, vb, out=t[OP_SUB])
-        torch.mul(va, vb, out=t[OP_MUL])
-        torch.div(va, vb, out=t[OP_DIV])
-        torch.maximum(va, vb, out=t[OP_MAX])
-        torch.minimum(va, vb, out=t[OP_MIN])
-        torch.ge(va, vb, out=t[OP_GE])
-        torch.gt(va, vb, out=t[OP_GT])
-        torch.lt(va, vb, out=t[OP_LT])
-        torch.le(va, vb, out=t[OP_LE])
-        torch.eq(va, vb, out=t[OP_EQ])
-        torch.ne(va, vb, out=t[OP_NE])
-        torch.where(va > 0.5, vc, vb, out=t[OP_SEL])
-        torch.trunc(va, out=t[OP_TRUNC])
-        torch.floor(va, out=t[OP_FLOOR])
-        torch.ceil(va, out=t[OP_CEIL])
-        torch.abs(va, out=t[OP_ABS])
-        torch.sign(va, out=t[OP_SIGN])
-        # isfinite: x - x is +0 exactly for finite x, NaN for inf and NaN
-        torch.eq(va - va, 0, out=t[OP_ISFIN])
-        torch.fmod(va, vb, out=t[OP_REM])  # truncated remainder
-        torch.pow(va, vb, out=t[OP_POW])
-        torch.exp(va, out=t[OP_EXP])
-        torch.log(va, out=t[OP_LOG])
-        torch.sqrt(va, out=t[OP_SQRT])
-        torch.sin(va, out=t[OP_SIN])
-        torch.cos(va, out=t[OP_COS])
-        torch.tan(va, out=t[OP_TAN])
-        t[OP_COL].copy_(va.gather(2, ck.expand(lanes, n, 1)).expand(shape))
-        t[OP_RSUM_G].copy_(va.sum(dim=2, keepdim=True).expand(shape))
-        t[OP_RMAX_G].copy_(va.amax(dim=2, keepdim=True).expand(shape))
-        t[OP_RMIN_G].copy_(va.amin(dim=2, keepdim=True).expand(shape))
-        torch.where(g_iota == ck, vb, va, out=t[OP_SETCOL])  # column := vb
-        pick = opcode[:, k].view(1, lanes, 1, 1).expand(1, lanes, n, g)
-        torch.gather(table, 0, pick, out=regs[op_base + k][None])
-    out = regs[_lanes(prog.out_reg, lanes, False).long(), ar][..., 0]
+    shared = prog.opcode.dim() == 1 or prog.opcode.shape[0] == 1
+    if shared and prog.opcode.device.type == "cpu":
+        cap = prog.capacity
+        ops = torch.stack([
+            x.reshape(-1, cap)[0].to(torch.int64) for x in (
+                prog.opcode, prog.a, prog.b, prog.c,
+                prog.imm.to(torch.int64).clamp(0, g - 1))
+        ]).T[:bound].tolist()
+        for k, (op, a, b, c, col) in enumerate(ops):
+            ck = torch.full((1, 1, 1), col, dtype=torch.int64, device=dev)
+            _BRANCHES[op](regs[a], regs[b], regs[c], ck.expand(lanes, 1, 1),
+                          g_iota, regs[op_base + k])
+    else:
+        ar = torch.arange(lanes, device=dev)
+        opcode = _lanes(prog.opcode, lanes, True).long()
+        abc = torch.stack([_lanes(prog.a, lanes, True),
+                           _lanes(prog.b, lanes, True),
+                           _lanes(prog.c, lanes, True)], dim=1).long()
+        imm = _lanes(prog.imm, lanes, True)
+        col = imm.to(torch.int64).clamp(0, g - 1)  # COL / SETCOL column
+        # every branch writes its slice of one table (no stack copy)
+        table = torch.empty((N_OPCODES, lanes, n, g), dtype=f, device=dev)
+        t = table.unbind(0)
+        for k in range(bound):
+            opnd = regs[abc[:, :, k], ar[:, None]]  # [L, 3, N, G]
+            va, vb, vc = opnd[:, 0], opnd[:, 1], opnd[:, 2]
+            ck = col[:, k, None, None]  # [L, 1, 1]
+            for branch, out in zip(_BRANCHES, t):
+                branch(va, vb, vc, ck, g_iota, out)
+            pick = opcode[:, k].view(1, lanes, 1, 1).expand(1, lanes, n, g)
+            torch.gather(table, 0, pick, out=regs[op_base + k][None])
+    out_reg = _lanes(prog.out_reg, lanes, False).long()
+    out = regs[out_reg, torch.arange(lanes, device=dev)][..., 0]
     # a non-finite value (a division by zero, the log of a negative) would
     # hit the int cast with implementation-defined results: refuse instead
     out = torch.where(torch.isfinite(out), out, torch.zeros_like(out))
@@ -604,3 +643,35 @@ def bucket_lanes(n: int, multiple: int = 1) -> int:
     generation), rounded up to a multiple of ``multiple``."""
     pop = max(1, 1 << (max(1, n) - 1).bit_length())
     return -(-pop // multiple) * multiple
+
+
+def lower_fake_candidates(n: int, g: int, need: int, *, capacity: int = 256,
+                          seed: int = 7, max_tries_factor: int = 12):
+    """Generate and lower ``need`` FakeLLM candidates to VM programs —
+    fks_tpu's shared candidate source for code-candidate throughput: the
+    same seed gives the same candidates there and here. Deterministic
+    FakeLLM completions (no junk), template-filled, lowered with
+    ``compile_policy``; candidates outside the vocabulary or longer than
+    ``capacity`` are skipped. Returns ``(progs, lower_seconds)``, the
+    host lowering time of each kept candidate. At most
+    ``max_tries_factor * need`` attempts, so callers check
+    ``len(progs)`` against ``need``."""
+    import time as _time
+
+    from fks_tpu_torch.funsearch import llm, template
+
+    fake = llm.FakeLLM(seed=seed, junk_rate=0.0)
+    progs: List[VMProgram] = []
+    lower_s: List[float] = []
+    for _ in range(max_tries_factor * need):
+        if len(progs) >= need:
+            break
+        code = template.fill_template(fake.complete("x"))
+        t0 = _time.perf_counter()
+        try:
+            prog = compile_policy(code, n, g, capacity=capacity)
+        except Exception:  # noqa: BLE001 — outside the VM vocabulary
+            continue
+        lower_s.append(_time.perf_counter() - t0)
+        progs.append(prog)
+    return progs, lower_s

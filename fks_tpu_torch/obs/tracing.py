@@ -16,9 +16,12 @@ post-step free aggregates. This module is the host-side half:
 - ``policy_params``: a zoo policy, or candidate source on the funsearch
   VM, as ``(param_policy, params)``.
 
+- ``candidate_trace_diff``: a candidate's search-tier evaluation (a
+  ``funsearch.backend.CodeEvaluator``'s engine, on the VM when the
+  candidate lowers) against the exact engine on the transpiled tier.
+
 Only the first divergent row is a root cause: every later difference is
-downstream of it. ``candidate_trace_diff`` takes fks_tpu's
-``CodeEvaluator`` and waits for the evolution slice of the port.
+downstream of it.
 """
 from __future__ import annotations
 
@@ -36,11 +39,6 @@ from fks_tpu_torch.sim.types import (
 _EXACT_FIELDS = ("kind", "pod", "node", "pending",
                  "free_cpu", "free_mem", "free_gpu", "free_gpu_milli")
 _SCORE_FIELDS = ("score", "margin")
-
-_EVOLUTION = ("candidate_trace_diff takes a CodeEvaluator "
-              "(funsearch/backend.py), which is not ported yet (ROADMAP "
-              "queue 1, the evolution slice); replay a candidate with "
-              "trace_diff and policy_params(code=...) meanwhile")
 
 
 def extract_trace(result_or_buffer, lane: Optional[int] = None
@@ -209,6 +207,34 @@ def policy_params(workload, policy_name: str = "", code: str = "",
 def candidate_trace_diff(evaluator, code: str, recorder=None,
                          score_tol: float = 1e-5,
                          label: str = "") -> Dict[str, Any]:
-    """fks_tpu.obs.tracing.candidate_trace_diff: raises ValueError until
-    the evolution slice ports the ``CodeEvaluator`` it takes."""
-    raise ValueError(_EVOLUTION)
+    """Trace-diff a candidate's SEARCH-tier evaluation (the evaluator's
+    engine, on the VM when the candidate lowers) against the exact engine
+    on the transpiled tier — the two numbers fks_tpu's parity sentinel
+    compares, so the first divergence is the root-cause step of a drift.
+    Replays on the evaluator's device."""
+    from fks_tpu_torch.funsearch import transpiler, vm
+
+    wl = evaluator.workload
+    cfg = dataclasses.replace(evaluator.cfg, cond_policy=True)
+    engine = evaluator.engine if evaluator.engine in ("exact", "flat") \
+        else "flat"
+    policy = transpiler.transpile(code)
+
+    def jit_policy(_p, pod, nodes):
+        return policy(pod, nodes)
+
+    search_policy, search_params, search_tier = jit_policy, None, "jit"
+    if getattr(evaluator, "use_vm", True):
+        try:
+            search_params = vm.compile_for_workload(code, wl)
+            search_policy, search_tier = vm.score, "vm"
+        except Exception:  # noqa: BLE001 — VM-ineligible -> transpiled
+            pass
+    specs = [
+        (f"search:{engine}/{search_tier}", engine, search_policy,
+         search_params),
+        ("reference:exact/jit", "exact", jit_policy, None),
+    ]
+    return trace_diff(wl, specs, cfg=cfg, score_tol=score_tol,
+                      recorder=recorder, label=label,
+                      device=getattr(evaluator, "device", None))

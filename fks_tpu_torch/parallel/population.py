@@ -3,7 +3,9 @@
 Port of fks_tpu.parallel.population. The population is ``params[P, 16]``;
 the exact and flat engines run it as P lanes of one batched step (on the
 card, replayed as a CUDA graph for the exact engine), the fused engine as
-one kernel launch with one warp per candidate.
+one kernel launch with one warp per candidate. ``pad_population`` and the
+occupancy counters are the mesh-free helpers of fks_tpu.parallel.mesh
+that the budget rungs use.
 """
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ from fks_tpu_torch.models import parametric
 from fks_tpu_torch.sim import get_engine
 from fks_tpu_torch.sim.engine import SimConfig
 from fks_tpu_torch.sim.types import (
-    NodeView, PodView, SimResult, as_params, map_tensors,
+    NodeView, PodView, SimResult, as_params, batch_size, map_tensors,
 )
 
 # (params, PodView, NodeView) -> i32[L, N] scores
@@ -66,3 +68,51 @@ def make_population_eval(workload: Workload,
 def fitness(result: SimResult) -> torch.Tensor:
     """The scalar the evolution loop ranks on."""
     return result.policy_score
+
+
+def pad_population(params, num_shards: int):
+    """Pad the candidate axis up to a multiple of ``num_shards``: every
+    tensor of ``params`` (a weight matrix ``[C, F]`` or a stacked
+    ``vm.VMProgram``) repeats its last candidate's slice. Returns
+    ``(padded, real_count)``; pass ``real_count`` on so the pad slots
+    (duplicates of the last candidate) are masked out of elite selection.
+    Mesh-free part of fks_tpu.parallel.mesh.pad_population: the mesh
+    itself waits for ROADMAP queue 1 item 3."""
+    c = batch_size(params)
+    target = -(-c // num_shards) * num_shards
+    if target != c:
+        params = map_tensors(
+            lambda x: torch.cat([x, x[-1:].expand(
+                (target - c,) + tuple(x.shape[1:]))]), params)
+    return params, c
+
+
+def pad_stats(real_count: int, num_shards: int) -> dict:
+    """Pad-lane accounting for a ``pad_population`` launch: how many of
+    the launched lanes repeat the last candidate instead of doing real
+    work (fks_tpu.parallel.mesh.pad_stats)."""
+    real = int(real_count)
+    padded = -(-real // num_shards) * num_shards if real else 0
+    return {
+        "real_count": real,
+        "padded_count": padded,
+        "pad_lanes": padded - real,
+        "pad_waste_fraction": (padded - real) / padded if padded else 0.0,
+    }
+
+
+def occupancy_stats(real_count: int, num_shards: int, scenarios: int = 1,
+                    segments: int = 1) -> dict:
+    """``pad_stats`` extended with the other two batch axes a launch
+    multiplies over, scenarios and trace segments:
+    ``launched_lane_steps`` is the lane-dispatch count, ``real_lane_steps``
+    the share that was real candidates (fks_tpu.parallel.mesh.
+    occupancy_stats)."""
+    s = pad_stats(real_count, num_shards)
+    scenarios = max(1, int(scenarios))
+    segments = max(1, int(segments))
+    s["scenarios"] = scenarios
+    s["segments"] = segments
+    s["launched_lane_steps"] = s["padded_count"] * scenarios * segments
+    s["real_lane_steps"] = s["real_count"] * scenarios * segments
+    return s

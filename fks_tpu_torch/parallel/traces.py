@@ -9,8 +9,9 @@ are laid out candidate-outer, trace-inner: lane ``c * T + t`` runs
 candidate ``c`` on trace ``t``, and the results come back as ``[C, T]``.
 
 On CUDA the batched step replays as a captured CUDA graph
-(``sim.engine.GraphedChunk``), one graph per population size, which holds
-its step; results read from a reused graph's state are copied out.
+(``sim.engine.GraphedChunk``), one graph per candidate count and params
+shape (``sim.engine.graph_key``), which holds its step; results read from
+a reused graph's state are copied out.
 """
 from __future__ import annotations
 
@@ -25,8 +26,8 @@ from fks_tpu_torch.device import resolve_device
 from fks_tpu_torch.models import parametric
 from fks_tpu_torch.sim import get_engine
 from fks_tpu_torch.sim.engine import (
-    GraphedChunk, SimConfig, bind_step, copy_state_, run_batched_lanes,
-    stack_states, tile_state, zip_tensors,
+    GraphedChunk, SimConfig, bind_step, copy_state_, graph_key,
+    run_batched_lanes, stack_states, tile_state, zip_tensors,
 )
 from fks_tpu_torch.sim.evaluator import (
     max_snapshot_count, snapshot_trigger_table,
@@ -140,12 +141,13 @@ def make_trace_batch_eval(workloads: Sequence[Workload],
                                       max_steps, active_fn=mod.lane_active)
             res = mod.finalize(wl, cfg, final, lane_trace=lane_trace)
         else:
-            chunk = graphs.get(cands)
+            key = graph_key(cands, params)
+            chunk = graphs.get(key)
             if chunk is None:
                 chunk = GraphedChunk(
                     build(clone_tensors(params), lane_trace), state,
                     max_steps, mod.lane_active)
-                graphs[cands] = chunk
+                graphs[key] = chunk
             else:
                 if params is not None:
                     copy_tensors_(chunk.step.params, params)
@@ -154,5 +156,5 @@ def make_trace_batch_eval(workloads: Sequence[Workload],
                 wl, cfg, chunk.run(), lane_trace=lane_trace))
         return _per_lane(res, cands, traces) if population else res
 
-    eval_fn.graphs = graphs  # captured CUDA graphs, by candidate count
+    eval_fn.graphs = graphs  # captured CUDA graphs, by engine.graph_key
     return eval_fn

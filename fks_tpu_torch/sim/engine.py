@@ -73,6 +73,7 @@ from fks_tpu_torch.sim.types import (
     TRACE_CREATE, TRACE_DELETE, TRACE_NODE_DOWN, TRACE_NODE_UP, TRACE_RETRY,
     NodeView, PodView, PolicyFn, SimResult, SimState, TraceBuffer,
     batch_size, clone_tensors, copy_tensors_, empty_trace, map_tensors,
+    tensor_leaves,
 )
 
 #: steps between the host's checks that some lane is still active (one
@@ -930,13 +931,22 @@ def make_population_run_fn(workload: Workload, param_policy,
     ``state0`` is a one-lane ``initial_state`` and ``params`` a weight
     matrix or any NamedTuple of ``[P, ...]`` tensors (a stacked
     ``funsearch.vm.VMProgram``). On CUDA the first call for a population
-    size captures its ``GraphedChunk`` on a static copy of the params and
-    the state; later calls copy theirs in and replay (a program of
-    another capacity bucket needs its own runner), so the result is
-    copied out of the graph's state. ``run.graphs`` holds the captured
-    chunks by population size."""
+    size and params shape captures its ``GraphedChunk`` on a static copy
+    of the params and the state; later calls of that key copy theirs in
+    and replay, so the result is copied out of the graph's state.
+    ``run.graphs`` holds the captured chunks by ``graph_key``."""
     return population_runner(workload, param_policy, cfg, build_step,
                              finalize, lane_active)
+
+
+def graph_key(pop: int, params) -> tuple:
+    """The key a captured population graph is kept under: the lane count
+    and the shape and dtype of every tensor of the params. A graph
+    replays fixed buffers, so params of another shape (a stacked program
+    of another capacity bucket) must capture a graph of their own rather
+    than be copied into this one."""
+    leaves = tensor_leaves(params) if params is not None else []
+    return (pop,) + tuple((tuple(x.shape), x.dtype) for x in leaves)
 
 
 def population_runner(workload: Workload, param_policy, cfg: SimConfig,
@@ -957,11 +967,12 @@ def population_runner(workload: Workload, param_policy, cfg: SimConfig,
             final = run_batched_lanes(build(params), state, max_steps,
                                       active_fn)
             return finalize_fn(workload, cfg, final)
-        chunk = graphs.get(pop)
+        key = graph_key(pop, params)
+        chunk = graphs.get(key)
         if chunk is None:
             chunk = GraphedChunk(build(clone_tensors(params)), state,
                                  max_steps, active_fn)
-            graphs[pop] = chunk
+            graphs[key] = chunk
         else:
             copy_tensors_(chunk.step.params, params)
             copy_state_(chunk.state, state)
@@ -1001,18 +1012,22 @@ PREFILTER_COST_THRESHOLD_S = 2e-4
 #: below this node count the dense sweep is cheap whatever the policy
 PREFILTER_MIN_NODES = 256
 #: static per-node work bound below which a policy is trivially cheap and
-#: the probe is skipped (fks_tpu.analysis CostEstimate.work; its producer
-#: waits for the port of analysis/candidate.py)
+#: the probe is skipped (``static_work_hint``)
 PREFILTER_WORK_HINT_MIN = 16
 
 
 def probe_policy_cost(param_policy, params, n_padded: int, g_padded: int,
                       reps: int = 5, device=None) -> float:
-    """Steady-state wall seconds of one policy call at the padded cluster
+    """Steady-state seconds of one policy call at the padded cluster
     shape, one lane: the bare policy on all-ones views on ``device``
-    (default ``cuda``), the first call excluded, the minimum over ``reps``
-    timed calls. On CUDA each call sits between two
-    ``torch.cuda.synchronize()``. ``params`` are one candidate's."""
+    (default ``cuda``), the minimum over ``reps`` timed calls after an
+    untimed one. ``params`` are one candidate's.
+
+    On CUDA the call's device time is measured: the call is captured once
+    in a CUDA graph and each of the ``reps`` replays sits between two
+    ``torch.cuda.Event``s, so the launch overhead of an eager call (which
+    dwarfs a small policy's kernels) stays out of the reading. On the CPU
+    each call is timed with ``perf_counter``."""
     import time as _time
 
     dev = resolve_device(device)
@@ -1026,20 +1041,32 @@ def probe_policy_cost(param_policy, params, n_padded: int, g_padded: int,
     nodes = NodeView(vn, vn, vn, vn, vn, vn, vg, vg, vg,
                      ones(1, n_padded, g_padded, dtype=torch.bool),
                      ones(1, n_padded, dtype=torch.bool))
-
-    def sync():
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-
-    param_policy(params, pod, nodes)  # warm-up, excluded
-    best = float("inf")
-    for _ in range(max(1, reps)):
-        sync()
-        t0 = _time.perf_counter()
+    reps = max(1, reps)
+    if dev.type != "cuda":
+        param_policy(params, pod, nodes)  # warm-up, excluded
+        best = float("inf")
+        for _ in range(reps):
+            t0 = _time.perf_counter()
+            param_policy(params, pod, nodes)
+            best = min(best, _time.perf_counter() - t0)
+        return best
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        param_policy(params, pod, nodes)  # warm-up before the capture
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
         param_policy(params, pod, nodes)
-        sync()
-        best = min(best, _time.perf_counter() - t0)
-    return best
+    graph.replay()  # the first replay uploads the graph: untimed
+    marks = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    for start, end in marks:
+        start.record()
+        graph.replay()
+        end.record()
+    torch.cuda.synchronize(dev)
+    return min(start.elapsed_time(end) for start, end in marks) * 1e-3
 
 
 def auto_prefilter_k(n_padded: int, policy_cost_s: Optional[float], *,
@@ -1061,12 +1088,27 @@ def auto_prefilter_k(n_padded: int, policy_cost_s: Optional[float], *,
     return k
 
 
+def static_work_hint(code: str, g_padded: int) -> Optional[int]:
+    """The ``work_hint`` of ``resolve_auto_prefilter`` for candidate
+    source: the pre-flight cost model's per-node work bound
+    (``analysis.preflight_check(code).cost.work(g_padded)``), as fks_tpu's
+    serving path computes it (serve/artifact.py). None when the analyzer
+    cannot price the source, and the heuristic then probes."""
+    from fks_tpu_torch import analysis
+
+    rep = analysis.preflight_check(code)
+    if rep.ok and rep.cost is not None:
+        return rep.cost.work(g_padded)
+    return None
+
+
 def resolve_auto_prefilter(param_policy, params, n_padded: int,
                            g_padded: int, *, override: Optional[int] = None,
                            recorder=None, work_hint: Optional[int] = None,
                            device=None, **heuristic_kw) -> int:
     """``auto_prefilter_k`` with the timing probe run only when its answer
-    can matter: an override, a small node axis or a ``work_hint`` below
+    can matter: an override, a small node axis or a ``work_hint`` (for
+    candidate source, ``static_work_hint``) below
     ``PREFILTER_WORK_HINT_MIN`` skips it. Records a ``prefilter_auto``
     event on ``recorder`` (default: ``obs.recorder.get_recorder()``) so a
     run shows why k was chosen."""

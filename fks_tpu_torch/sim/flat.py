@@ -53,7 +53,7 @@ from fks_tpu_torch.ops.heap import KIND_NODE_UP
 from fks_tpu_torch.sim.engine import (
     SYNC_EVERY, FinalView, GraphedChunk, SimConfig, _audit, _cluster_totals,
     _node_rows, _node_view, _pod_rows, _take, _tensor_leaves,
-    bind_step, broadcast_state, check_config,
+    bind_step, broadcast_state, check_config, graph_key,
     copy_state_, finalize_fields, gather_node_view, hist_size,
     lane_cluster, lane_table, loop_tables, population_runner,
     prefilter_candidates, run_batched_lanes, trace_append,
@@ -585,7 +585,7 @@ def make_segmented_population_run(workload: Workload, param_policy,
     The returned ``run(params, state0)`` exposes ``run.advance(params,
     state) -> (state, flag)`` (one segment; ``flag`` a device bool
     tensor), ``run.finalize_pop(state)``, ``run.seg_steps`` and
-    ``run.graphs`` (the captured chunks by population size)."""
+    ``run.graphs`` (the captured chunks by ``engine.graph_key``)."""
     seg_steps = validate_seg_steps(seg_steps, zero_disables=False)
     ktable, max_steps = loop_tables(workload, cfg)
     graphs = {}
@@ -608,14 +608,14 @@ def make_segmented_population_run(workload: Workload, param_policy,
                 if not bool(any_active(state)):
                     break
             return state, any_active(state)
-        lanes = state.lanes
-        chunk = graphs.get(lanes)
+        key = graph_key(state.lanes, params)
+        chunk = graphs.get(key)
         done = 0
         if chunk is None:
             # construction runs the chunk once eagerly (its warm-up)
             chunk = GraphedChunk(build(clone_tensors(params)), state,
                                  max_steps, lane_active)
-            graphs[lanes] = chunk
+            graphs[key] = chunk
             done = 1
         else:
             copy_tensors_(chunk.step.params, params)

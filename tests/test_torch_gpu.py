@@ -9,9 +9,10 @@ the GPU machine with
     python -m pytest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
 
 The file imports only torch, so it runs where JAX is not installed. The
-code-candidate tier (the funsearch VM against the transpiled policy) and
-the large-cluster tier (the prefilter, packed state, the segmented
-runner) are held here too.
+code-candidate tier (the funsearch VM against the transpiled policy), the
+large-cluster tier (the prefilter, packed state, the segmented runner),
+the code evaluator's graph per capacity bucket and the graph-timed
+auto-prefilter probe are held here too.
 """
 import gc
 import json
@@ -262,3 +263,55 @@ def test_segmented_on_card_equals_unsegmented(cuda, double_buffer):
         seg = run(params, flat.initial_state(wl, cfg))
         assert_result_matches(seg, result_fields(base), rtol=0, atol=0)
     assert len(run.graphs) == 1
+
+
+def _champions(n):
+    root = pathlib.Path(__file__).resolve().parent.parent
+    paths = sorted((root / "policies" / "discovered").glob("funsearch_*.json"))
+    codes = [json.loads(p.read_text()).get("code") for p in paths]
+    return [c for c in codes if c][:n]
+
+
+def test_code_evaluator_captures_a_graph_per_capacity_bucket(cuda):
+    """Two batched evaluations whose stacks fall in different capacity
+    buckets (the seeds: 256; two champions: 512) each capture a graph of
+    their own — no program is copied into another bucket's graph — and
+    give the CPU's scores; so does the one-candidate tier."""
+    from fks_tpu_torch.funsearch import CodeEvaluator, template
+
+    wl = synthetic_workload(4, 24, seed=3)
+    cfg = SimConfig(score_dtype=torch.float64)
+    batches = [list(template.seed_policies().values()), _champions(2)]
+    card = CodeEvaluator(wl, cfg)
+    assert card.device.type == "cuda" and card.vm_batch
+    cpu = CodeEvaluator(wl, cfg, device="cpu")
+    wants = [[r.score for r in cpu.evaluate(codes)] for codes in batches]
+    for codes, want in zip(batches + batches, wants + wants):
+        # the second pass copies into the captured graphs and replays
+        assert [r.score for r in card.evaluate(codes)] == want
+        assert card.last_eval_stats["vm_batch_lanes"] == len(codes)
+    caps = sorted(key[1][0][-1] for key in card._vm_pop_run.graphs)
+    assert caps == [256, 512] and card.vm_batch_fallbacks == 0
+    assert card.vm_batch_count == 4
+    for code in (batches[0][0], batches[1][0]):
+        assert card.evaluate_one(code).score == cpu.evaluate_one(code).score
+    assert sorted(key[1][0][-1] for key in card._vm_run.graphs) == [256, 512]
+
+
+def test_probe_times_graph_replays(cuda):
+    """``probe_policy_cost`` on the card times replays of a captured graph
+    of the policy call, and the auto-prefilter turns on for the VM at
+    N = 1,000, as fks_tpu's decision does."""
+    from fks_tpu_torch.funsearch import template, vm
+
+    n, g = 1000, 8
+    prog = vm.compile_policy(template.seed_policies()["first_fit"], n, g,
+                             capacity=256)
+    cost = engine.probe_policy_cost(vm.score_static, prog, n, g,
+                                    device=cuda)
+    assert cost > engine.PREFILTER_COST_THRESHOLD_S
+    assert engine.resolve_auto_prefilter(vm.score_static, prog, n, g,
+                                         device=cuda) == 64
+    first_fit = parametric.seed_weights("first_fit")
+    assert engine.probe_policy_cost(parametric.score, first_fit, n, g,
+                                    device=cuda) > 0

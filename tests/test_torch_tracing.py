@@ -27,6 +27,7 @@ from fks_tpu.scenarios import ScenarioSpec as JaxSpec
 from fks_tpu.scenarios import perturb_workload as jax_perturb
 from fks_tpu.sim.engine import SimConfig as JaxConfig
 from fks_tpu_torch.data.synthetic import synthetic_workload
+from fks_tpu_torch.funsearch.backend import CodeEvaluator
 from fks_tpu_torch.models import zoo
 from fks_tpu_torch.obs import tracing
 from fks_tpu_torch.obs.recorder import NullRecorder, get_recorder, recording
@@ -188,11 +189,12 @@ def test_errors():
     with pytest.raises(ValueError, match="unknown policy"):
         tracing.policy_params(wl, "nope")
     # candidate source runs on the funsearch VM, after the sandbox's
-    # validation; candidate_trace_diff waits for the evolution slice
+    # validation; so does candidate_trace_diff's
     with pytest.raises(ValueError, match="exactly one function"):
         tracing.policy_params(wl, code="def score(pod, node): return 1")
-    with pytest.raises(ValueError, match="evolution"):
-        tracing.candidate_trace_diff(None, "def score(pod, node): return 1")
+    with pytest.raises(ValueError, match="exactly one function"):
+        tracing.candidate_trace_diff(CodeEvaluator(wl, device="cpu"),
+                                     "def score(pod, node): return 1")
     # replaying a fault workload in a flat run of a different policy
     flt = perturb_workload(synthetic_workload(4, 24, seed=3),
                            ScenarioSpec("f", seed=2, fault_nodes=1))

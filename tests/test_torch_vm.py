@@ -31,6 +31,7 @@ import torch
 
 from fks_tpu.data.synthetic import synthetic_workload as jax_synthetic
 from fks_tpu.funsearch import vm as jvm
+from fks_tpu.funsearch.backend import CodeEvaluator as JaxCodeEvaluator
 from fks_tpu.models import parametric as jparametric
 from fks_tpu.obs import tracing as jtracing
 from fks_tpu.sim import engine as jengine
@@ -39,6 +40,7 @@ from fks_tpu_torch.convert import vm_program_from_numpy
 from fks_tpu_torch.data import TraceParser
 from fks_tpu_torch.data.synthetic import synthetic_workload
 from fks_tpu_torch.funsearch import template, transpiler, vm
+from fks_tpu_torch.funsearch.backend import CodeEvaluator
 from fks_tpu_torch.models import parametric
 from fks_tpu_torch.obs import tracing
 from fks_tpu_torch.sim import get_engine
@@ -392,7 +394,9 @@ def test_render_code_matches_fks_tpu():
 
 def test_policy_params_code_replays_like_fks_tpu(micro_workload):
     """``policy_params(code=)`` is ``(vm.score, program)``; a replay of it
-    equals fks_tpu's replay of its own ``policy_params(code=)``."""
+    equals fks_tpu's replay of its own ``policy_params(code=)``, and
+    ``candidate_trace_diff`` (the VM search tier against the transpiled
+    exact reference) finds what fks_tpu's finds."""
     code = template.seed_policies()["best_fit"]
     wl = port_workload(micro_workload)
     fn, prog = tracing.policy_params(wl, code=code, capacity=256)
@@ -403,5 +407,10 @@ def test_policy_params_code_replays_like_fks_tpu(micro_workload):
     ref = jtracing.replay(micro_workload, "exact", jfn, jprog)
     assert_result_matches(got, result_fields(ref))
     assert tracing.extract_trace(got) == jtracing.extract_trace(ref)
-    with pytest.raises(ValueError, match="evolution"):
-        tracing.candidate_trace_diff(None, code)
+    diff = tracing.candidate_trace_diff(CodeEvaluator(wl, device="cpu"),
+                                        code)
+    jdiff = jtracing.candidate_trace_diff(JaxCodeEvaluator(micro_workload),
+                                          code)
+    assert diff["engines"] == jdiff["engines"]
+    assert diff["divergent"] is jdiff["divergent"] is False
+    assert diff["steps"] == jdiff["steps"]
