@@ -18,6 +18,9 @@ population fitness and single-device parametric evolution; the exact heap
 engine; robust fitness over scenario suites (``scenarios``,
 ``parallel.traces``, the decision trace and ``obs.tracing``); code
 candidates (``funsearch.sandbox``, ``template``, ``transpiler`` and the
-``vm``); and the large-cluster tier (``SimConfig.node_prefilter_k``,
-``state_pack``, ``sim.flat.make_segmented_population_run``).
+``vm``); the large-cluster tier (``SimConfig.node_prefilter_k``,
+``state_pack``, ``sim.flat.make_segmented_population_run``); the FunSearch
+evolve loop; and champion serving (``serve``, with ``python -m
+fks_tpu_torch.cli serve``). Two hand-written Hopper kernels:
+``csrc/fused_sim.cu`` and ``csrc/param_score.cu`` (``parametric.score``).
 """

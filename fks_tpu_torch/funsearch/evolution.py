@@ -13,9 +13,10 @@ Additions over the reference, as in fks_tpu: checkpoint/resume
 (population + RNG state + generation, the same JSON schema, so a
 checkpoint written by either package restores in the other), the
 generation WAL, a hermetic fake-LLM mode, and per-generation ledger
-records. ``EvolutionConfig.parity_sample > 0`` waits for the parity
-sentinel (ROADMAP queue 1 item 4) and ``profile=True`` for the stage
-profiler (item 6); both raise.
+records; ``EvolutionConfig.parity_sample > 0`` samples the population
+through the parity sentinel (``obs.watchdog``) every generation.
+``profile=True`` waits for the stage profiler (ROADMAP queue 1 item 6)
+and raises.
 """
 from __future__ import annotations
 
@@ -81,9 +82,8 @@ class EvolutionConfig:
     parametric_pop: int = 32
     parametric_noise: float = 0.05
     # parity sentinel: re-score this many sampled population members per
-    # generation through the exact reference (0 = off; a positive value
-    # waits for the port of obs/watchdog.py, ROADMAP queue 1 item 4, and
-    # raises). parity_tol also bounds the budget champion audit.
+    # generation through the exact reference (0 = off). parity_tol also
+    # bounds the budget champion audit.
     parity_sample: int = 0
     parity_tol: float = 1e-5
     # scenario-suite robust fitness (scenarios): name a registered
@@ -276,8 +276,8 @@ class FunSearch:
         # ledger performs zero filesystem writes
         self.recorder = recorder if recorder is not None else obs.get_recorder()
         self.ledger = obs.EvolutionLedger(self.recorder, evaluator)
-        # the sentinel's sampling check is off (parity_sample > 0 raises);
-        # its budget champion audit runs on budget-pruned generations
+        # the parity sentinel is a no-op unless parity_sample > 0; its
+        # budget champion audit runs on budget-pruned generations
         self.sentinel = ParitySentinel(
             evaluator, sample=config.parity_sample, tol=config.parity_tol,
             seed=config.seed, recorder=self.recorder)

@@ -164,12 +164,117 @@ def raw_score(params, pod: PodView, nodes: NodeView, dtype=torch.float32):
     return _dot(lo, hi, params.to(dtype)[..., None, :]) * SCORE_SCALE
 
 
-def score(params, pod: PodView, nodes: NodeView, dtype=torch.float32):
-    """Parametric policy: ``max(1, int(f @ w * SCALE))`` under
+def score_plain(params, pod: PodView, nodes: NodeView,
+                dtype=torch.float32):
+    """The plain PyTorch version of ``score`` (and of its kernel,
+    csrc/param_score.cu): ``max(1, int(f @ w * SCALE))`` under
     feasibility (zoo.feasible_mask), i32[L, N]."""
     lo, hi, feasible = _basis(pod, nodes, dtype)
     raw = _dot(lo, hi, params.to(dtype)[..., None, :]) * SCORE_SCALE
     return torch.where(feasible, trunc_to_int32(raw).clamp(min=1), 0)
+
+
+#: the views the kernel reads, in its argument order (param_score.cu
+#: ``Field``): pod fields [L, 1], node fields [L, N], GPU fields [L, N, G]
+_POD_FIELDS = ("cpu_milli", "memory_mib", "num_gpu", "gpu_milli")
+_NODE_FIELDS = ("cpu_milli_left", "cpu_milli_total", "memory_mib_left",
+                "memory_mib_total", "gpu_left", "num_gpus", "node_mask")
+_GPU_FIELDS = ("gpu_milli_left", "gpu_milli_total", "gpu_mask")
+_MASKS = ("node_mask", "gpu_mask")
+#: GPUs per node the kernel takes (its mask bits are one 32-bit word)
+KERNEL_MAX_GPUS = 32
+
+
+def _kernel_views(params, pod: PodView, nodes: NodeView, dtype):
+    """The kernel's inputs as strided views of the caller's tensors, every
+    one expanded to the lane count L (a shared ``[N]`` field keeps lane
+    stride 0): ``(views, weights, L, N, G)``. Nothing is copied but the
+    weights' cast to ``dtype`` (a no-op for float32 weights in float32).
+    Raises ``ValueError`` on what the kernel does not take."""
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"param_score computes float32 or float64, not "
+                         f"{dtype}")
+    n = int(nodes.cpu_milli_left.shape[-1])
+    g = int(nodes.gpu_milli_left.shape[-1])
+    if g > KERNEL_MAX_GPUS:
+        raise ValueError(f"param_score takes at most {KERNEL_MAX_GPUS} GPUs "
+                         f"per node, got {g}")
+    w = params.to(dtype)
+    if w.dim() not in (1, 2) or w.shape[-1] != NUM_FEATURES:
+        raise ValueError(f"params must be [L, {NUM_FEATURES}] or "
+                         f"[{NUM_FEATURES}], got {tuple(w.shape)}")
+    lead = [x.shape[0] for x in (*(getattr(pod, f) for f in _POD_FIELDS),
+                                 nodes.cpu_milli_left, nodes.gpu_left)]
+    if w.dim() == 2:
+        lead.append(w.shape[0])
+    lanes = max(lead)
+    views = []
+    for name in _POD_FIELDS:
+        views.append((name, getattr(pod, name), (lanes, 1)))
+    for name in _NODE_FIELDS:
+        views.append((name, getattr(nodes, name), (lanes, n)))
+    for name in _GPU_FIELDS:
+        views.append((name, getattr(nodes, name), (lanes, n, g)))
+    out = []
+    for name, x, shape in views:
+        want = torch.bool if name in _MASKS else torch.int32
+        if x.dtype != want:
+            raise ValueError(f"param_score reads {name} as {want}, got "
+                             f"{x.dtype}")
+        if x.dim() > len(shape) or x.dim() < len(shape) - 1:
+            raise ValueError(f"param_score: {name} has shape "
+                             f"{tuple(x.shape)}, expected {shape}")
+        out.append(x.expand(shape))
+    return out, w.expand(lanes, NUM_FEATURES), lanes, n, g
+
+
+def _launch_score(params, pod: PodView, nodes: NodeView, dtype):
+    """``csrc/param_score.cu`` on the current stream: i32[L, N]."""
+    import ctypes
+
+    from fks_tpu_torch.ops import _ext
+
+    views, w, lanes, n, g = _kernel_views(params, pod, nodes, dtype)
+    dev = pod.cpu_milli.device
+    for x in (*views, w):
+        if x.device != dev:
+            raise ValueError(f"param_score views span devices ({x.device}, "
+                             f"{dev})")
+    out = torch.empty((lanes, n), dtype=torch.int32, device=dev)
+
+    def strides(x):
+        s = list(x.stride()) + [0] * (3 - x.dim())
+        return s[:3]
+
+    block = [x.data_ptr() for x in (*views, w, out)]
+    for x in (*views, w, out):
+        block += strides(x)
+    block += [lanes, n, g]
+    lib = _ext.param_score_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.fks_param_score((ctypes.c_longlong * len(block))(*block),
+                                  w.element_size(), stream)
+    if err != 0:
+        raise RuntimeError(
+            f"param_score kernel launch failed: CUDA error {err} "
+            f"({lib.fks_cuda_error_string(err).decode()})")
+    score.launches += 1
+    return out
+
+
+def score(params, pod: PodView, nodes: NodeView, dtype=torch.float32):
+    """Parametric policy: ``max(1, int(f @ w * SCALE))`` under
+    feasibility (zoo.feasible_mask), i32[L, N]. On CUDA tensors one
+    launch of ``csrc/param_score.cu`` (counted in ``score.launches``),
+    which raises rather than fall back; on CPU tensors the plain version,
+    ``score_plain``."""
+    if pod.cpu_milli.is_cuda:
+        return _launch_score(params, pod, nodes, dtype)
+    return score_plain(params, pod, nodes, dtype)
+
+
+score.launches = 0  # kernel launches (CUDA only), reset by callers
 
 
 # ----------------------------------------------------------- seed weights

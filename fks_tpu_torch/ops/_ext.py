@@ -3,8 +3,8 @@
 Each ``fks_tpu_torch/csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper
 (``sm_90a``) into ``build/kernels/<name>-<hash>.so`` at the repository root
 the first time it is needed, then loaded with ``ctypes``. The hash covers
-the source and the flags, so an edited kernel rebuilds and a built one is
-reused. ``nvcc`` runs only here, inside a call — never when a module is
+the source, the headers of ``csrc/`` it may include and the flags, so an
+edited kernel or header rebuilds and a built one is reused. ``nvcc`` runs only here, inside a call — never when a module is
 imported — so the CPU tests import every module without a toolkit.
 
 Flags: no fast math and ``--fmad=false``, so float arithmetic stays IEEE
@@ -43,9 +43,11 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 
@@ -89,5 +91,16 @@ def fused_sim_library() -> ctypes.CDLL:
     lib.fks_fused_sim_smem_bytes.argtypes = [i] * 4
     lib.fks_fused_sim_smem_bytes.restype = ctypes.c_size_t
     lib.fks_cuda_error_string.argtypes = [i]
+    lib.fks_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def param_score_library() -> ctypes.CDLL:
+    """``csrc/param_score.cu`` with its C signatures declared."""
+    lib = load("param_score")
+    lib.fks_param_score.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                    ctypes.c_void_p]
+    lib.fks_param_score.restype = ctypes.c_int
+    lib.fks_cuda_error_string.argtypes = [ctypes.c_int]
     lib.fks_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -59,6 +59,7 @@ import torch
 
 from fks_tpu_torch.data.entities import ClusterArrays, PodArrays, Workload
 from fks_tpu_torch.device import resolve_device
+from fks_tpu_torch.obs import telemetry
 from fks_tpu_torch.ops.allocator import best_fit_gpus, first_fit_gpus
 from fks_tpu_torch.ops.heap import (
     COL_KIND, COL_POD, KIND_CREATE, KIND_DELETE, KIND_NODE_DOWN,
@@ -569,7 +570,7 @@ class GraphedChunk:
             run_chunk(step, state, steps)
         torch.cuda.current_stream(dev).wait_stream(side)
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
+        with telemetry.graph_capture("chunk"), torch.cuda.graph(self.graph):
             run_chunk(step, state, steps)
 
     def replay(self) -> None:
@@ -665,14 +666,26 @@ def lane_active(s: SimState, max_steps: int) -> torch.Tensor:
     return (s.heap.size > 0) & ~s.failed & (s.steps < max_steps)
 
 
+def pod_table(p: PodArrays) -> torch.Tensor:
+    """The pod rows a step gathers from: i32[P, 5] (cpu, mem, GPU count,
+    GPU milli, duration), or [T, P, 5] for stacked traces."""
+    return torch.stack([p.cpu, p.mem, p.num_gpu, p.gpu_milli, p.duration],
+                       dim=-1).to(torch.int32)
+
+
 def build_step(workload: Workload, policy: PolicyFn, cfg: SimConfig,
-               ktable, max_steps: int,
-               lane_trace=None) -> Callable[[SimState], SimState]:
+               ktable, max_steps: int, lane_trace=None,
+               pod_rows=None) -> Callable[[SimState], SimState]:
     """One event in every lane (module docstring).
     ``policy(PodView, NodeView) -> [L, N]`` scores all lanes at once; per-
     lane scalars are ``[L, 1]`` columns. With ``lane_trace`` the workload
     is a stack of traces and ``ktable`` their ``[T, K]`` snapshot tables
-    (``parallel.traces.stack_traces``)."""
+    (``parallel.traces.stack_traces``). ``pod_rows`` is the step's
+    ``pod_table`` buffer when the caller keeps its own (a serve graph
+    rewrites it in place for every batch); ``ktable`` is then the caller's
+    ``[L, K]`` buffer too, read in place with one row per lane, and
+    ``lane_trace`` must map lane l to trace l. By default the step derives
+    both from the workload once, when it is built."""
     check_config(cfg)
     p = workload.pods
     c = lane_cluster(workload.cluster, lane_trace)
@@ -693,12 +706,12 @@ def build_step(workload: Workload, policy: PolicyFn, cfg: SimConfig,
     h_iota = torch.arange(nh, dtype=i32, device=dev)
     kinds = torch.tensor([KIND_CREATE, KIND_DELETE], dtype=i32, device=dev)
     signs = torch.tensor([0, 1, -1], dtype=i32, device=dev)
-    ktable = lane_table(torch.as_tensor(ktable, dtype=i32, device=dev),
-                        lane_trace)
+    if pod_rows is None:
+        ktable = lane_table(torch.as_tensor(ktable, dtype=i32, device=dev),
+                            lane_trace)
     klen = int(ktable.shape[-1])
     # [P, 5] (or [T, P, 5]), one row gather per event
-    feat = torch.stack([p.cpu, p.mem, p.num_gpu, p.gpu_milli, p.duration],
-                       dim=-1).to(i32)
+    feat = pod_table(p) if pod_rows is None else pod_rows
     tix = lane_trace
     pp = p.p_padded
     if cfg.validate_invariants and lane_trace is not None:
@@ -1056,7 +1069,7 @@ def probe_policy_cost(param_policy, params, n_padded: int, g_padded: int,
         param_policy(params, pod, nodes)  # warm-up before the capture
     torch.cuda.current_stream(dev).wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with telemetry.graph_capture("probe"), torch.cuda.graph(graph):
         param_policy(params, pod, nodes)
     graph.replay()  # the first replay uploads the graph: untimed
     marks = [(torch.cuda.Event(enable_timing=True),

@@ -46,7 +46,7 @@ from typing import Callable
 
 import torch
 
-from fks_tpu_torch.data.entities import Workload
+from fks_tpu_torch.data.entities import PodArrays, Workload
 from fks_tpu_torch.device import resolve_device
 from fks_tpu_torch.ops.allocator import best_fit_gpus, first_fit_gpus
 from fks_tpu_torch.ops.heap import KIND_NODE_UP
@@ -201,12 +201,28 @@ def lane_active(s: FlatState, max_steps: int) -> torch.Tensor:
     return live & ~s.failed & (s.steps < max_steps)
 
 
+def pod_table(p: PodArrays) -> torch.Tensor:
+    """The pod rows a step gathers from, in slot (tie-rank) order: i32[Q,
+    5] (cpu, mem, GPU count, GPU milli, duration), or [T, Q, 5] for
+    stacked traces."""
+    perm = rank_perm(p.pod_mask, p.tie_rank)
+    return torch.stack([x.gather(-1, perm) for x in (
+        p.cpu, p.mem, p.num_gpu, p.gpu_milli, p.duration)],
+        dim=-1).to(torch.int32)
+
+
 def build_step(workload: Workload, policy: PolicyFn, cfg: SimConfig,
-               ktable, max_steps: int,
-               lane_trace=None) -> Callable[[FlatState], FlatState]:
+               ktable, max_steps: int, lane_trace=None,
+               pod_rows=None) -> Callable[[FlatState], FlatState]:
     """One event in every lane. ``policy(PodView, NodeView) -> i32[L, N]``
     scores all lanes at once. With ``lane_trace`` the workload is a stack
     of traces and ``ktable`` their ``[T, K]`` snapshot tables.
+    ``pod_rows`` is the step's ``pod_table`` buffer when the caller keeps
+    its own (a serve graph rewrites it in place for every batch);
+    ``ktable`` is then the caller's ``[L, K]`` buffer too, read in place
+    with one row per lane, and ``lane_trace`` must map lane l to trace l.
+    By default the step derives both from the workload once, when it is
+    built.
 
     Per-lane scalars are ``[L, 1]`` columns inside the step. On the CPU,
     work that only some events need (refunds, scoring, GPU picks,
@@ -230,8 +246,9 @@ def build_step(workload: Workload, policy: PolicyFn, cfg: SimConfig,
     g_iota = torch.arange(g, dtype=i64, device=dev)
     g_pow = torch.ones((), dtype=i64, device=dev) << g_iota
     n_iota = torch.arange(n, dtype=i32, device=dev)
-    ktable = lane_table(torch.as_tensor(ktable, dtype=i32, device=dev),
-                        lane_trace)
+    if pod_rows is None:
+        ktable = lane_table(torch.as_tensor(ktable, dtype=i32, device=dev),
+                            lane_trace)
     klen = int(ktable.shape[-1])
     tix = lane_trace
 
@@ -241,9 +258,8 @@ def build_step(workload: Workload, policy: PolicyFn, cfg: SimConfig,
     def slot_order(x):
         return x.gather(-1, perm)
 
-    feat = torch.stack([slot_order(x) for x in (
-        p.cpu, p.mem, p.num_gpu, p.gpu_milli, p.duration)],
-        dim=-1).to(i32)  # [Q, 5], or [T, Q, 5]
+    # [Q, 5], or [T, Q, 5]
+    feat = pod_table(p) if pod_rows is None else pod_rows
     if cfg.validate_invariants:  # the audit's pods, in slot order
         p_slot = dataclasses.replace(p, **{
             k: lane_table(slot_order(getattr(p, k)), lane_trace)

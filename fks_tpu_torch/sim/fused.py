@@ -13,8 +13,8 @@ Three parts:
 - ``fused_sim``: the kernel's wrapper. On a CUDA tensor it launches the
   kernel (counting launches in ``fused_sim.launches``) or raises; on a CPU
   tensor it runs ``fused_sim_plain``, the plain PyTorch version — the
-  port's flat engine with ``parametric.score``, reshaped into the kernel's
-  raw outputs;
+  port's flat engine with ``parametric.score_plain``, reshaped into the
+  kernel's raw outputs;
 - ``make_fused_population_run``: ``run(params[P, 16]) -> SimResult``.
 
 The kernel follows the flat engine where the two JAX engines disagree:
@@ -164,16 +164,17 @@ def _build_plan(workload: Workload, cfg: SimConfig,
 
 def fused_sim_plain(plan: _Plan, params: torch.Tensor):
     """The kernel's plain PyTorch version on ``params``' device: the flat
-    engine with ``parametric.score`` in float32, reshaped into the kernel's
-    raw outputs ``(aux[P, Q], cpu, mem, gpu [P, N], gmil [P, N, G],
-    acci i32[P, 8], accf f32[P, 8])``."""
+    engine with ``parametric.score_plain`` in float32 (plain PyTorch on
+    the card too, not the score kernel), reshaped into the kernel's raw
+    outputs ``(aux[P, Q], cpu, mem, gpu [P, N], gmil [P, N, G], acci
+    i32[P, 8], accf f32[P, 8])``."""
     wl = plan.workload
     cfg = dataclasses.replace(plan.cfg, track_ctime=False,
                               score_dtype=torch.float32)
     ktable, max_steps = loop_tables(wl, cfg)
     step = flat.build_step(
-        wl, lambda pod, nodes: parametric.score(params, pod, nodes), cfg,
-        ktable, max_steps)
+        wl, lambda pod, nodes: parametric.score_plain(params, pod, nodes),
+        cfg, ktable, max_steps)
     pop = params.shape[0]
     s = flat.run_lanes(step, flat.initial_state(wl, cfg, lanes=pop),
                        max_steps)

@@ -226,9 +226,6 @@ def test_unported_options_raise(micro):
         CodeEvaluator(wl, mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="queue 1 item 3"):
         ParametricEvolution(wl, pop_size=4, mesh=object(), device="cpu")
-    with pytest.raises(ValueError, match="queue 1 item 4"):
-        FunSearch(CodeEvaluator(wl, device="cpu"),
-                  EvolutionConfig(parity_sample=2), log=quiet)
     with pytest.raises(ValueError, match="queue 1 item 6"):
         evo.run(wl, EvolutionConfig(**BASE), profile=True, device="cpu")
     with pytest.raises(ValueError, match="requires suite mode"):

@@ -12,7 +12,8 @@ The file imports only torch, so it runs where JAX is not installed. The
 code-candidate tier (the funsearch VM against the transpiled policy), the
 large-cluster tier (the prefilter, packed state, the segmented runner),
 the code evaluator's graph per capacity bucket and the graph-timed
-auto-prefilter probe are held here too.
+auto-prefilter probe are held here too, with the parametric score
+kernel (csrc/param_score.cu) and the serve engines on the card.
 """
 import gc
 import json
@@ -301,7 +302,8 @@ def test_code_evaluator_captures_a_graph_per_capacity_bucket(cuda):
 def test_probe_times_graph_replays(cuda):
     """``probe_policy_cost`` on the card times replays of a captured graph
     of the policy call, and the auto-prefilter turns on for the VM at
-    N = 1,000, as fks_tpu's decision does."""
+    N = 1,000 and stays off for the parametric policy (one launch of its
+    kernel), as fks_tpu's decisions do."""
     from fks_tpu_torch.funsearch import template, vm
 
     n, g = 1000, 8
@@ -313,5 +315,116 @@ def test_probe_times_graph_replays(cuda):
     assert engine.resolve_auto_prefilter(vm.score_static, prog, n, g,
                                          device=cuda) == 64
     first_fit = parametric.seed_weights("first_fit")
-    assert engine.probe_policy_cost(parametric.score, first_fit, n, g,
-                                    device=cuda) > 0
+    cost = engine.probe_policy_cost(parametric.score, first_fit, n, g,
+                                    device=cuda)
+    assert 0 < cost <= engine.PREFILTER_COST_THRESHOLD_S
+    assert engine.resolve_auto_prefilter(parametric.score, first_fit, n, g,
+                                         device=cuda) == 0
+
+
+@pytest.mark.parametrize("n", [16, 1000])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_param_score_kernel_equals_plain_version(cuda, n, dtype):
+    """csrc/param_score.cu against ``parametric.score_plain`` on the same
+    card views: per-lane and shared weights, CPU and GPU pods, shared and
+    per-lane node tables; one launch per call, counted."""
+    for seed, heavy in ((0, False), (1, True)):
+        pod, nodes, w = random_policy_views(seed, lanes=64, n=n,
+                                            gpu_heavy=heavy)
+        cp = type(pod)(*(x.to(cuda) for x in pod))
+        cn = type(nodes)(*(x.to(cuda) for x in nodes))
+        lane_nodes = type(nodes)(*(
+            x.expand((64,) + tuple(x.shape)).contiguous()
+            if x.shape[0] != 64 else x for x in cn))
+        for weights in (w.to(cuda), w[5].to(cuda)):
+            before = parametric.score.launches
+            got = parametric.score(weights, cp, cn, dtype=dtype)
+            assert parametric.score.launches == before + 1
+            want = parametric.score_plain(weights, cp, cn, dtype=dtype)
+            assert torch.equal(got, want)
+            assert torch.equal(parametric.score(weights, cp, lane_nodes,
+                                                dtype=dtype), want)
+
+
+def test_param_score_captures_in_a_graph(cuda):
+    """The launch goes on the current stream, so it captures inside a CUDA
+    graph, and a replay reads what was last written into the views."""
+    pod, nodes, w = random_policy_views(2, lanes=16)
+    cp = type(pod)(*(x.to(cuda) for x in pod))
+    cn = type(nodes)(*(x.to(cuda) for x in nodes))
+    w = w.to(cuda)
+    parametric.score(w, cp, cn)  # build and warm up outside the capture
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = parametric.score(w, cp, cn)
+    pod2, nodes2, w2 = random_policy_views(9, lanes=16)
+    for dst, src in zip((*cp, *cn, w), (*pod2, *nodes2, w2)):
+        dst.copy_(src)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out.cpu(), parametric.score_plain(w2, pod2, nodes2))
+
+
+def _serve_setup(device):
+    from fks_tpu_torch.funsearch import template
+    from fks_tpu_torch.serve import ChampionSpec, ShapeEnvelope
+
+    code = template.fill_template(
+        "score = 1000 + (node.cpu_milli_left - pod.cpu_milli) // 100")
+    return (ChampionSpec(code=code, score=0.5),
+            synthetic_workload(8, 16, seed=0),
+            ShapeEnvelope(max_pods=16, min_pod_bucket=4, max_batch=4))
+
+
+def _serve_queries():
+    return [[{"cpu_milli": 10 + 7 * i + j, "memory_mib": 50 + 11 * j,
+              "num_gpu": (i + j) % 2, "gpu_milli": 300 * ((i + j) % 3),
+              "creation_time": j, "duration_time": 30 + i}
+             for j in range(1 + i % 9)] for i in range(7)]
+
+
+@pytest.mark.parametrize("kind", ["aot", "vm"])
+def test_serve_answers_on_card_match_cpu(cuda, kind):
+    """Both serve engines on the card answer as on the CPU (placements
+    exact, scores within the engines' 2e-6), batched and unbatched."""
+    from fks_tpu_torch.serve import ServeEngine, VMServeEngine
+
+    cls = VMServeEngine if kind == "vm" else ServeEngine
+    champ, wl, env = _serve_setup(cuda)
+    card = cls(champ, wl, envelope=env, device=cuda)
+    cpu = cls(champ, wl, envelope=env, device="cpu")
+    queries = _serve_queries()
+    for got, want in zip(card.answer_batch(queries),
+                         cpu.answer_batch(queries)):
+        assert got["placements"] == want["placements"]
+        assert got["scheduled"] == want["scheduled"]
+        assert abs(got["score"] - want["score"]) <= 2e-6
+    ref = card.reference_answer(queries[3])
+    assert ref["placements"] == cpu.reference_answer(queries[3])[
+        "placements"]
+
+
+def test_serve_warm_path_and_swap_capture_nothing(cuda):
+    """After ``warmup`` a VM engine answers and swaps champions of its
+    capacity bucket with zero graph captures, and the swapped engine
+    answers as a fresh one."""
+    from fks_tpu_torch.funsearch import template
+    from fks_tpu_torch.obs.telemetry import CompileWatcher
+    from fks_tpu_torch.serve import ChampionSpec, VMServeEngine
+
+    champ, wl, env = _serve_setup(cuda)
+    eng = VMServeEngine(champ, wl, envelope=env, device=cuda)
+    with CompileWatcher() as w:
+        graphs = eng.warmup(lane_buckets=[1, 2, 4], pod_buckets=[4, 16])
+    assert w.backend_compile_count == graphs == 6
+    other = ChampionSpec(code=template.fill_template(
+        "score = 2000 + (node.memory_mib_left - pod.memory_mib) // 1000"))
+    queries = _serve_queries()
+    with CompileWatcher() as w:
+        eng.answer_batch(queries)
+        eng.swap_program(other)
+        swapped = eng.answer_batch(queries)
+    assert w.backend_compile_count == 0
+    fresh = VMServeEngine(other, wl, envelope=env, device=cuda)
+    for a, b in zip(swapped, fresh.answer_batch(queries)):
+        assert a["placements"] == b["placements"] and a["score"] == b["score"]
