@@ -28,13 +28,22 @@ Phases (any failure raises and exits non-zero):
    outputs held against the plain version at the same inputs;
 4b. the parametric score kernel (``csrc/param_score.cu``, what
    ``parametric.score`` launches on a CUDA tensor) against its plain
-   version on 4 x 256 random views at N = 16 and N = 1,000 in float32 and
-   float64 (max abs difference 0, also against the CPU), its time per call
-   (graph replays, CUDA events) beside the plain version's and its bound at
-   the main path's shape and at N = 1,000, and the auto-prefilter probe at
-   N = 1,000: k = 0 for ``parametric.score``, k = 64 for ``vm.score_static``;
-   its launches are then counted from 0 around phases 6, 8, 10 and 11
-   (each must launch it);
+   version on 4 x 256 random views at N = 16 and N = 1,000 and on
+   ``testing.param_score_cases`` (L in 1, 3, 256 x N in 1, 15, 16, 17,
+   1,000 x G in 1, 8, 32: shared and per-lane tables and weights,
+   scattered masks, milli totals other than 1,000, unfit pods, strided
+   views) in float32 and float64 (max abs difference 0, also against the
+   CPU); at 256 x 16 (the main path), 1 x 16, 1 x 1,000, 4 x 1,000 and
+   256 x 1,000 its time per call as a one-call graph replay and as the
+   marginal time of 32 calls in one graph (CUDA events, replays queued
+   behind a spin), beside an empty kernel of the same launch (the floor),
+   the plain version's time and the bound; with ``--old-csrc DIR`` (a
+   git-ignored copy of an earlier ``csrc/`` whose kernel takes the
+   earlier argument block) that design's times too, in
+   turns old, new, new, old; and the auto-prefilter probe at N = 1,000:
+   k = 0 for ``parametric.score``, k = 64 for ``vm.score_static``; its
+   launches are then counted from 0 around phases 6, 8, 10 and 11 (each
+   must launch it). ``--only 4b`` runs phases 1, 2 and 4b alone;
 5. ``ParametricEvolution`` for 3 generations at pop 256 on the fused
    engine: the best score must not decrease;
 6. the exact heap engine (plain PyTorch ops, and ``param_score`` for the
@@ -187,10 +196,16 @@ def compare_raw(name, got, want):
     return worst
 
 
-def cuda_ms(fn, reps: int) -> float:
+def cuda_ms(fn, reps: int, hold_s: float = 0.0) -> float:
+    """Mean ms of ``fn`` over ``reps`` calls between two CUDA events. With
+    ``hold_s`` the stream first spins that long on the card, so the host
+    has queued every call before the first one starts: the reading is then
+    the card's time back to back, not the host's launch rate."""
     import torch
 
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    if hold_s:
+        torch.cuda._sleep(int(hold_s * 2e9))  # cycles, at up to 2 GHz
     start.record()
     for _ in range(reps):
         fn()
@@ -1055,9 +1070,14 @@ def evolve_phase(dev, card, probe_inputs) -> dict:
     return out
 
 
-def graph_ms(fn, reps: int = 20) -> float:
-    """Mean ms of one replay of ``fn`` captured in a CUDA graph (CUDA
-    events around ``reps`` replays, after an untimed one)."""
+def graph_ms(fn, reps: int = 20, calls: int = 1) -> float:
+    """Mean ms of one call of ``fn`` from a CUDA graph that holds ``calls``
+    calls back to back: CUDA events around ``reps`` replays (after an
+    untimed one), queued behind a spin so the card runs them back to back,
+    divided by ``calls``. With one call it is the call plus the graph's own
+    launch on the card; with many the graph's launch spreads over the
+    calls and each call's marginal time remains, as inside a step's
+    graph, with the L2 cache warm."""
     import torch
 
     side = torch.cuda.Stream()
@@ -1067,21 +1087,76 @@ def graph_ms(fn, reps: int = 20) -> float:
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        fn()
+        for _ in range(calls):
+            fn()
     graph.replay()
-    return cuda_ms(graph.replay, reps)
+    return cuda_ms(graph.replay, reps, hold_s=reps * 25e-6) / calls
 
 
-def param_score_phase(dev, card) -> dict:
+#: phase 4b's timed shapes (lanes, nodes): the exact engine's pop 256 on
+#: the default cluster, one lane, the auto-prefilter probe, phase 10's
+#: population at 1,000 nodes, and 256 lanes at 1,000 nodes
+PARAM_SCORE_TIMED = ((256, 16), (1, 16), (1, 1000), (4, 1000), (256, 1000))
+MARGINAL_CALLS = 32
+
+
+def build_old_param_score(csrc: Path):
+    """An earlier design of the score kernel, built from a copy of its
+    sources in ``csrc`` (a git-ignored directory) with the port's nvcc
+    flags, and a launcher that takes its argument block (pointers,
+    strides, L, N, G): for the old-against-new comparison of phase 4b."""
+    import ctypes
+
+    import torch
+
+    from fks_tpu_torch.models import parametric
+    from fks_tpu_torch.ops import _ext
+
+    out = _ext.BUILD_DIR / "param_score_pr7.so"
+    _ext.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    subprocess.run([_ext.nvcc_path(), *_ext.NVCC_FLAGS, "-o", str(out),
+                    str(csrc / "param_score.cu")], check=True,
+                   capture_output=True, text=True)
+    lib = ctypes.CDLL(str(out))
+    lib.fks_param_score.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                    ctypes.c_void_p]
+    lib.fks_param_score.restype = ctypes.c_int
+
+    def launch(params, pod, nodes):
+        views, w, lanes, n, g = parametric._kernel_views(
+            params, pod, nodes, torch.float32)
+        out = torch.empty((lanes, n), dtype=torch.int32,
+                          device=w.device)
+        xs = (*views, w, out)
+        block = [x.data_ptr() for x in xs]
+        for x in xs:
+            block += (list(x.stride()) + [0, 0])[:3]
+        block += [lanes, n, g]
+        err = lib.fks_param_score((ctypes.c_longlong * len(block))(*block),
+                                  4, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"the earlier param_score failed: {err}")
+        return out
+
+    return launch
+
+
+def param_score_phase(dev, card, old_csrc=None) -> dict:
     """Phase 4b (module docstring): csrc/param_score.cu against its plain
-    version, its times beside its bound, and the auto-prefilter probe."""
+    version, its times beside its launch floor and its bound, and the
+    auto-prefilter probe; with ``old_csrc``, the earlier design's times from
+    the same call, in turns."""
+    import ctypes
+
     import torch
 
     from fks_tpu_torch.funsearch import template, vm
     from fks_tpu_torch.models import parametric
     from fks_tpu_torch.ops import _ext
     from fks_tpu_torch.sim import engine
-    from fks_tpu_torch.testing import random_policy_views
+    from fks_tpu_torch.testing import (
+        PARAM_SCORE_NODES, param_score_cases, random_policy_views,
+    )
 
     t_phase = time.perf_counter()
     for line in _ext.ptxas_report("param_score").splitlines():
@@ -1091,38 +1166,82 @@ def param_score_phase(dev, card) -> dict:
                 raise AssertionError(f"param_score spills registers: {line}")
     on_card = lambda views: tuple(  # noqa: E731
         type(v)(*(x.to(dev) for x in v)) for v in views)
-    checked, max_err = 0, 0
+
+    def held(label, pod, nodes, w):
+        """kernel == plain version on the card == plain version on the
+        CPU, float32 and float64; returns the scores compared."""
+        cp, cn = on_card((pod, nodes))
+        for dtype in (torch.float32, torch.float64):
+            got = parametric.score(w.to(dev), cp, cn, dtype=dtype)
+            want = parametric.score_plain(w.to(dev), cp, cn, dtype=dtype)
+            err = int((got.long() - want.long()).abs().max())
+            if err or not torch.equal(
+                    got.cpu(), parametric.score_plain(w, pod, nodes,
+                                                      dtype=dtype)):
+                raise AssertionError(
+                    f"param_score {label} {dtype}: kernel differs from the "
+                    f"plain version (max abs {err})")
+        return 2 * got.numel()
+
+    checked = 0
     for n in (16, 1000):
         for seed in range(4):
-            pod, nodes, w = random_policy_views(seed, lanes=256, n=n,
-                                                gpu_heavy=seed % 2 == 1)
-            cp, cn = on_card((pod, nodes))
-            for dtype in (torch.float32, torch.float64):
-                got = parametric.score(w.to(dev), cp, cn, dtype=dtype)
-                want = parametric.score_plain(w.to(dev), cp, cn, dtype=dtype)
-                err = int((got.long() - want.long()).abs().max())
-                if err or not torch.equal(
-                        got.cpu(), parametric.score_plain(w, pod, nodes,
-                                                          dtype=dtype)):
-                    raise AssertionError(
-                        f"param_score N={n} seed {seed} {dtype}: kernel "
-                        f"differs from the plain version (max abs {err})")
-                max_err = max(max_err, err)
-                checked += got.numel()
-    log(f"[param_score] 4 x 256 random views at N = 16 and N = 1,000, "
-        f"float32 and float64: {checked} scores, max abs difference "
-        f"{max_err} against the plain version on the card and the CPU")
+            checked += held(f"N={n} seed {seed}", *random_policy_views(
+                seed, lanes=256, n=n, gpu_heavy=seed % 2 == 1))
+    cases = 0
+    for n in PARAM_SCORE_NODES:
+        for label, pod, nodes, w in param_score_cases(n):
+            checked += held(label, pod, nodes, w)
+            cases += 1
+    log(f"[param_score] 4 x 256 random views at N = 16 and N = 1,000 and "
+        f"{cases} cases of L in (1, 3, 256) x N in {PARAM_SCORE_NODES} x G "
+        f"in (1, 8, 32) (shared and per-lane tables and weights, scattered "
+        f"masks, milli totals other than 1,000, unfit pods, strided views), "
+        f"float32 and float64: {checked} scores, max abs difference 0 "
+        f"against the plain version on the card and the CPU")
 
-    # times at the main path's shapes (the exact engine's pop 256 on the
-    # default cluster: shared totals, per-lane remnants) and at N = 1,000
+    # times at the timed shapes, one-call replays and marginal in-graph
+    # calls, beside an empty kernel of the same grid (the launch floor)
+    lib = _ext.param_score_library()
+    old = build_old_param_score(old_csrc) if old_csrc else None
     times = {}
-    for lanes, n in ((256, 16), (1, 16), (1, 1000), (256, 1000)):
+    for lanes, n in PARAM_SCORE_TIMED:
         pod, nodes, w = random_policy_views(7, lanes=lanes, n=n)
         cp, cn = on_card((pod, nodes))
         w = w.to(dev)
-        k_ms = graph_ms(lambda: parametric.score(w, cp, cn))
-        p_ms = graph_ms(lambda: parametric.score_plain(w, cp, cn))
         g = nodes.gpu_milli_left.shape[-1]
+        block, geo, _ = parametric._score_block(w, cp, cn, torch.float32)
+        block = (ctypes.c_longlong * len(block))(*block)
+
+        def new():
+            return parametric.score(w, cp, cn)
+
+        def floor():
+            err = lib.fks_param_score_floor(
+                block, 4, torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"the floor kernel failed: {err}")
+
+        row = {"ms": graph_ms(new),
+               "marginal_ms": graph_ms(new, calls=MARGINAL_CALLS),
+               "floor_ms": graph_ms(floor),
+               "floor_marginal_ms": graph_ms(floor, calls=MARGINAL_CALLS),
+               "plain_ms": graph_ms(
+                   lambda: parametric.score_plain(w, cp, cn)),
+               "geometry": {"grid": list(geo.grid), "threads": geo.threads,
+                            "lanes_per_block": geo.lanes_per_block,
+                            "node_tile": geo.node_tile,
+                            "smem_bytes": geo.smem_bytes}}
+        if old is not None:
+            if not torch.equal(old(w, cp, cn), new()):
+                raise AssertionError("the earlier design differs from the new "
+                                     f"one at L={lanes} N={n}")
+            turns = []
+            for which in ("old", "new", "new", "old"):
+                fn = (lambda: old(w, cp, cn)) if which == "old" else new
+                turns.append((which, graph_ms(fn),
+                              graph_ms(fn, calls=MARGINAL_CALLS)))
+            row["turns"] = turns
         # bytes each input is read once, the scores written once: pod
         # fields 4 x L, per-lane node fields 3 x L x N, shared node fields
         # 3 x N and the node mask (1 byte), GPU free milli L x N x G,
@@ -1131,12 +1250,21 @@ def param_score_phase(dev, card) -> dict:
         nbytes = 4 * (4 * lanes + 3 * lanes * n + 3 * n + lanes * n * g
                       + n * g + 16 * lanes + lanes * n) + n + n * g
         bound = max(nbytes / HBM_BYTES_PER_S, 60 * lanes * n / F32_OPS_PER_S)
-        times[f"L{lanes}_N{n}"] = {"ms": k_ms, "plain_ms": p_ms,
-                                   "bound_ms": bound * 1e3, "bytes": nbytes}
-        log(f"[param_score] L={lanes} N={n} G={g}: kernel {k_ms * 1e3:.2f}"
-            f" us per call, plain {p_ms * 1e3:.2f} us (graph replays, CUDA "
-            f"events), bound {bound * 1e6:.3f} us ({nbytes} bytes), card "
-            f"{card}")
+        row.update(bound_ms=bound * 1e3, bytes=nbytes)
+        times[f"L{lanes}_N{n}"] = row
+        us = {k: v * 1e3 for k, v in row.items()
+              if k == "ms" or k.endswith("_ms")}
+        log(f"[param_score] L={lanes} N={n} G={g}: kernel {us['ms']:.2f} us "
+            f"per call (one-call graph), {us['marginal_ms']:.2f} us marginal "
+            f"({MARGINAL_CALLS} calls per graph); empty kernel of the same "
+            f"grid {us['floor_ms']:.2f} / {us['floor_marginal_ms']:.2f} us; "
+            f"plain {us['plain_ms']:.2f} us; bound {us['bound_ms']:.3f} us "
+            f"({nbytes} bytes); grid {geo.grid} x {geo.threads} threads, "
+            f"{geo.lanes_per_block} lanes x {geo.node_tile} nodes per "
+            f"block, {geo.smem_bytes} shared bytes; card {card}")
+        for which, one, marginal in row.get("turns", ()):
+            log(f"[param_score]   {which}: {one * 1e3:.2f} us per call, "
+                f"{marginal * 1e3:.2f} us marginal")
     parametric.score.launches = 0  # timing launches are not main-path ones
 
     # the probe at N = 1,000: the parametric policy keeps the dense sweep,
@@ -1163,7 +1291,7 @@ def param_score_phase(dev, card) -> dict:
                              "for parametric.score and 64 for the VM")
     parametric.score.launches = 0
     log(f"[param_score] phase {time.perf_counter() - t_phase:.1f} s")
-    return {"max_abs_err": max_err, "times": times, "probe": probe,
+    return {"max_abs_err": 0, "times": times, "probe": probe,
             "checked": checked}
 
 
@@ -1402,7 +1530,22 @@ def serve_phase(dev, card) -> dict:
             sentinel.checked, "http_s": http_s}
 
 
-def main() -> int:
+def parse_args(argv):
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--only", choices=("4b",),
+                    help="run phases 1, 2 and this phase alone, then stop "
+                         "(no contract line)")
+    ap.add_argument("--old-csrc", type=Path,
+                    help="a directory that holds an earlier csrc/ "
+                         "(param_score.cu, node_score.cuh): phase 4b then "
+                         "times that design too, in turns with this one")
+    return ap.parse_args(argv)
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
     if not (ROOT / "fks_tpu_torch" / "csrc" / "fused_sim.cu").is_file():
         raise SystemExit("chip_smoke.py must run from a checkout that holds "
                          "fks_tpu_torch/")
@@ -1458,6 +1601,13 @@ def main() -> int:
             log(f"[build] {line.strip()}")
             if any(int(n) for n in re.findall(r"(\d+) bytes spill", line)):
                 raise AssertionError(f"the kernel spills registers: {line}")
+
+    if args.only == "4b":
+        ps = param_score_phase(dev, card, args.old_csrc)
+        log(f"[param_score] {json.dumps(ps)}")
+        log(f"[card] {card}")
+        log(f"[done] {time.perf_counter() - t_start:.1f} s")
+        return 0
 
     # ---- 3. kernel vs plain version on the card
     def check(name, wl, cfg, params):
@@ -1565,7 +1715,7 @@ def main() -> int:
     hbm_bound_ms = io_bytes / HBM_BYTES_PER_S * 1e3
 
     # ---- 4b. the parametric score kernel against its plain version
-    ps = param_score_phase(dev, card)
+    ps = param_score_phase(dev, card, args.old_csrc)
 
     # ---- 5. evolution
     fused.fused_sim.launches = 0
@@ -1658,6 +1808,9 @@ def main() -> int:
         "replaces": "fks_tpu/models/parametric.py:103",
         "launches": ps_launches["6"], "max_abs_err": ps["max_abs_err"],
         "ms": ps["times"]["L256_N16"]["ms"],
+        "marginal_ms": ps["times"]["L256_N16"]["marginal_ms"],
+        "floor_ms": ps["times"]["L256_N16"]["floor_ms"],
+        "floor_marginal_ms": ps["times"]["L256_N16"]["floor_marginal_ms"],
         "plain_ms": ps["times"]["L256_N16"]["plain_ms"],
         "bound_ms": ps["times"]["L256_N16"]["bound_ms"],
         "bound_by": "bytes", "library_ms": None,
@@ -1665,8 +1818,10 @@ def main() -> int:
                       "over the HBM rate, at the main path's shape (phase "
                       "6: 256 lanes x 16 nodes x 8 GPUs, shared totals); "
                       "about 60 float32 operations per score are far "
-                      "below the float32 rate. fks_tpu runs parametric."
-                      "score as plain XLA: no TPU kernel, no library call",
+                      "below the float32 rate; an empty kernel of the same "
+                      "grid (floor_ms) is the launch floor. fks_tpu runs "
+                      "parametric.score as plain XLA: no TPU kernel, no "
+                      "library call",
         "launches_by_phase": ps_launches, "times": ps["times"],
         "probe": ps["probe"], "scores_checked": ps["checked"],
         "card": card,
@@ -1678,4 +1833,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -35,6 +35,9 @@ tier (``funsearch.transpiler``, ``funsearch.vm``).
 """
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple, Tuple
+
 import torch
 
 from fks_tpu_torch.ops.numerics import fma_f32, trunc_to_int32
@@ -228,12 +231,129 @@ def _kernel_views(params, pod: PodView, nodes: NodeView, dtype):
     return out, w.expand(lanes, NUM_FEATURES), lanes, n, g
 
 
-def _launch_score(params, pod: PodView, nodes: NodeView, dtype):
-    """``csrc/param_score.cu`` on the current stream: i32[L, N]."""
-    import ctypes
+#: the kernel's fields in its argument order: the views, weights, output
+_FIELDS = _POD_FIELDS + _NODE_FIELDS + _GPU_FIELDS + ("weights", "out")
+#: a block's threads and shared bytes at most (param_score.cu kMaxThreads,
+#: kMaxSmem: the default dynamic shared-memory limit, so the launch sets no
+#: attribute)
+KERNEL_MAX_THREADS = 256
+KERNEL_SMEM_BYTES = 48 * 1024
+#: lane x node cells a block scores (one warp per lane and 16 nodes)
+_BLOCK_CELLS = KERNEL_MAX_THREADS // 2
+#: the kernel's offsets are 32-bit
+_MAX_OFFSET = 2**31
 
-    from fks_tpu_torch.ops import _ext
 
+class ScoreGeometry(NamedTuple):
+    """How ``csrc/param_score.cu`` covers ``[L, N]``: a grid of (node
+    tile, lane tile) blocks with two threads per (lane, node) cell of a
+    block's tile (in the load round the first half load the cells' node
+    fields, the second half their GPU rows; then one warp scores each lane
+    and 16 nodes), and the block's shared memory, which holds every input
+    of the tile (``offsets``: each field's staged tile, in bytes)."""
+
+    grid: Tuple[int, int]  # (node tiles, lane tiles)
+    threads: int
+    lanes_per_block: int
+    node_tile: int
+    gpu_cols: int  # staged GPU columns: G as a power of two, at least 8
+    row_stride: int  # staged int GPU row, in words (gpu_cols + 4)
+    shared: int  # bit f: field f is staged once for the block's lanes
+    offsets: Tuple[int, ...]  # per field of _FIELDS
+    smem_bytes: int
+
+
+def _pow2(x: int) -> int:
+    return 1 << max(0, int(x) - 1).bit_length()
+
+
+@functools.lru_cache(maxsize=256)
+def launch_geometry(lanes: int, n: int, g: int, weight_bytes: int = 4,
+                    shared: int = 0) -> ScoreGeometry:
+    """The kernel's launch for ``lanes`` x ``n`` nodes of ``g`` GPUs, with
+    the fields whose bits are set in ``shared`` (lane stride 0) staged
+    once per block. A block scores up to 128 lane x node cells with two
+    threads each: 8 lanes x 16 nodes when ``n <= 16`` (the main path: the
+    lanes share the cluster's totals), else up to 4 lanes x 32 nodes,
+    fewer lanes widening the node tile (one lane: 128 nodes)."""
+    if n <= 16:
+        node_tile, lpb = 16, min(_pow2(lanes), 8)
+    else:
+        lpb = min(_pow2(lanes), 4)
+        node_tile = min(_pow2(n), _BLOCK_CELLS // lpb)
+    cols = max(8, _pow2(g))
+    row = cols + 4
+    sizes = []
+    for f, name in enumerate(_FIELDS):
+        rows = 1 if (shared >> f) & 1 else lpb
+        if f == 0:
+            size = 16 * lpb  # the four pod fields, [LB][4] int32
+        elif name in _POD_FIELDS or name == "out":
+            size = 0
+        elif name == "weights":
+            size = 16 * lpb * weight_bytes
+        elif name == "node_mask":
+            size = rows * node_tile
+        elif name in _NODE_FIELDS:
+            size = 4 * rows * node_tile
+        elif name == "gpu_mask":
+            size = rows * node_tile * cols
+        else:
+            size = 4 * rows * node_tile * row
+        sizes.append(size)
+    offsets, end = [], 0
+    for size in sizes:
+        offsets.append(end if size else 0)
+        end += -(-size // 16) * 16
+    return ScoreGeometry(
+        grid=(-(-n // node_tile), -(-lanes // lpb)),
+        threads=2 * lpb * node_tile, lanes_per_block=lpb,
+        node_tile=node_tile, gpu_cols=cols, row_stride=row, shared=shared,
+        offsets=tuple(offsets), smem_bytes=end)
+
+
+def _strides(x: torch.Tensor):
+    """The kernel's (lane, node, GPU) element strides of view x; a
+    dimension of size 1 gets stride 0, so a one-lane field is shared."""
+    s = [st if sz > 1 else 0 for sz, st in zip(x.shape, x.stride())]
+    return (s + [0, 0, 0])[:3]
+
+
+def _check_extents(named) -> None:
+    """Raise ``ValueError`` naming every view the kernel's 32-bit offsets
+    cannot reach: its last element lies 2**31 elements or more past its
+    first."""
+    wide = [name for name, x in named
+            if x.numel() and sum((sz - 1) * st for sz, st in
+                                 zip(x.shape, x.stride())) >= _MAX_OFFSET]
+    if wide:
+        raise ValueError(f"param_score: {', '.join(wide)} span 2**31 "
+                         f"elements or more; the kernel's offsets are "
+                         f"32-bit")
+
+
+def _vector_fields(named, g: int) -> int:
+    """Bits of the GPU fields whose rows the kernel loads 4 elements at a
+    time: G a staged column count (8, 16 or 32), contiguous GPU columns,
+    the lane and node strides multiples of 4, and the address aligned to
+    the load (16 bytes for int32, 4 for the mask's bytes)."""
+    bits = 0
+    for f, (name, x) in enumerate(named):
+        if name not in _GPU_FIELDS:
+            continue
+        s = _strides(x)
+        align = 4 * x.element_size()
+        if (g in (8, 16, 32) and s[2] == 1 and s[1] % 4 == 0
+                and s[0] % 4 == 0 and x.data_ptr() % align == 0):
+            bits |= 1 << f
+    return bits
+
+
+def _score_block(params, pod: PodView, nodes: NodeView, dtype):
+    """``(block, geometry, out)``: the kernel's argument block for these
+    views (csrc/param_score.cu, ``fks_param_score``), its geometry and the
+    new i32[L, N] output it writes. Raises ``ValueError`` on what the
+    kernel does not take."""
     views, w, lanes, n, g = _kernel_views(params, pod, nodes, dtype)
     dev = pod.cpu_milli.device
     for x in (*views, w):
@@ -241,20 +361,41 @@ def _launch_score(params, pod: PodView, nodes: NodeView, dtype):
             raise ValueError(f"param_score views span devices ({x.device}, "
                              f"{dev})")
     out = torch.empty((lanes, n), dtype=torch.int32, device=dev)
+    named = list(zip(_FIELDS, (*views, w, out)))
+    _check_extents(named)
+    if lanes * n >= _MAX_OFFSET:
+        raise ValueError(f"param_score: {lanes} lanes x {n} nodes reach "
+                         f"2**31 scores")
+    shared = sum(1 << f for f, (name, x) in enumerate(named)
+                 if name != "out" and _strides(x)[0] == 0)
+    geo = launch_geometry(lanes, n, g, w.element_size(), shared)
+    if geo.grid[1] > 65535:
+        raise ValueError(f"param_score: {geo.grid[1]} lane tiles exceed "
+                         f"the grid's 65,535")
+    block = [x.data_ptr() for _, x in named]
+    for _, x in named:
+        block += _strides(x)
+    block += [lanes, n, g, *geo.grid, geo.threads,
+              geo.lanes_per_block.bit_length() - 1,
+              geo.node_tile.bit_length() - 1, geo.gpu_cols.bit_length() - 1,
+              geo.row_stride, geo.smem_bytes, shared,
+              _vector_fields(named, g), *geo.offsets]
+    return block, geo, out
 
-    def strides(x):
-        s = list(x.stride()) + [0] * (3 - x.dim())
-        return s[:3]
 
-    block = [x.data_ptr() for x in (*views, w, out)]
-    for x in (*views, w, out):
-        block += strides(x)
-    block += [lanes, n, g]
+def _launch_score(params, pod: PodView, nodes: NodeView, dtype):
+    """``csrc/param_score.cu`` on the current stream: i32[L, N]."""
+    import ctypes
+
+    from fks_tpu_torch.ops import _ext
+
+    block, _, out = _score_block(params, pod, nodes, dtype)
     lib = _ext.param_score_library()
+    dev = out.device
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.fks_param_score((ctypes.c_longlong * len(block))(*block),
-                                  w.element_size(), stream)
+                                  torch.finfo(dtype).bits // 8, stream)
     if err != 0:
         raise RuntimeError(
             f"param_score kernel launch failed: CUDA error {err} "

@@ -101,6 +101,8 @@ def param_score_library() -> ctypes.CDLL:
     lib.fks_param_score.argtypes = [ctypes.c_void_p, ctypes.c_int,
                                     ctypes.c_void_p]
     lib.fks_param_score.restype = ctypes.c_int
+    lib.fks_param_score_floor.argtypes = lib.fks_param_score.argtypes
+    lib.fks_param_score_floor.restype = ctypes.c_int
     lib.fks_cuda_error_string.argtypes = [ctypes.c_int]
     lib.fks_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Mapping
+from typing import Mapping, Optional
 
 import numpy as np
 import torch
@@ -178,28 +178,43 @@ def golden_micro_workload():
 
 
 def random_policy_views(seed: int, lanes: int = 256, n: int = 16,
-                        g: int = 8, gpu_heavy: bool = False):
+                        g: int = 8, gpu_heavy: bool = False,
+                        scattered_masks: bool = False,
+                        milli_total: Optional[int] = 1000,
+                        unfit_lanes: int = 0):
     """``(PodView, NodeView, weights f32[lanes, 16])`` on the CPU, drawn
     with numpy from ``seed``: one pod per lane against ``n`` shared nodes
     of up to ``g`` GPUs (some CPU-only, some with every GPU free, one
-    padding node); ``gpu_heavy`` makes every pod ask for 1-3 GPUs."""
+    padding node when ``n > 1``); ``gpu_heavy`` makes every pod ask for
+    1-3 GPUs. Options that change the draw: ``scattered_masks`` gives each
+    node a random subset of its GPU slots (not a prefix);
+    ``milli_total`` is every GPU's total milli (``None``: drawn per GPU
+    from 200-2,000); the first ``unfit_lanes`` lanes' pods ask for more
+    CPU than any node has, so they fit nowhere."""
     from fks_tpu_torch.sim.types import NodeView, PodView
 
     rng = np.random.default_rng(seed)
     gm = np.zeros((n, g), bool)
     ngpu = rng.integers(0, g + 1, n)
-    ngpu[:3] = (0, g, 1)
+    ngpu[:3] = (0, g, 1)[:n]
     for i, k in enumerate(ngpu):
-        gm[i, :k] = True
-    gmt = np.where(gm, 1000, 0).astype(np.int32)
+        if scattered_masks:
+            gm[i, rng.permutation(g)[:k]] = True
+        else:
+            gm[i, :k] = True
+    top = (rng.integers(200, 2001, (n, g)) if milli_total is None
+           else np.full((n, g), milli_total))
+    gmt = np.where(gm, top, 0).astype(np.int32)
     ct = rng.integers(2000, 128000, n).astype(np.int32)
     mt = rng.integers(4000, 786432, n).astype(np.int32)
     nm = np.ones(n, bool)
-    nm[-1] = False
+    if n > 1:
+        nm[-1] = False
     used = rng.random((lanes, n))
-    gml = np.where(gm, rng.integers(0, 1001, (lanes, n, g)), 0).astype(
-        np.int32)
-    gml[:, :, :2] = np.where(gm[:, :2], 1000, 0)  # some full GPUs free
+    free = (rng.integers(0, 1001, (lanes, n, g)) if milli_total == 1000
+            else (rng.random((lanes, n, g)) * (top + 1)).astype(np.int64))
+    gml = np.where(gm, free, 0).astype(np.int32)
+    gml[:, :, :2] = np.where(gm[:, :2], top[:, :2], 0)  # some full GPUs free
     t = torch.from_numpy
     nodes = NodeView(
         t((ct * (1 - used)).astype(np.int32)), t(ct),
@@ -208,14 +223,75 @@ def random_policy_views(seed: int, lanes: int = 256, n: int = 16,
                      ngpu + 1).astype(np.int32)),
         t(ngpu.astype(np.int32)), t(gml), t(gmt), t(gmt.copy()), t(gm),
         t(nm))
+    cpu = rng.integers(0, 8000, lanes)
+    cpu[:unfit_lanes] = 200000  # above every node's 128,000 total
     pod = PodView(*(t(x.astype(np.int32))[:, None] for x in (
-        rng.integers(0, 8000, lanes), rng.integers(0, 30000, lanes),
+        cpu, rng.integers(0, 30000, lanes),
         rng.integers(1, 4, lanes) if gpu_heavy else rng.integers(0, 3, lanes),
         rng.integers(0, 1001, lanes),
         rng.integers(0, 10**6, lanes), rng.integers(0, 10**4, lanes))))
     w = rng.standard_normal((lanes, 16)).astype(np.float32)
     w[:, 13] += 1.0  # best_fit-like weights keep scores in a real range
     return pod, nodes, t(w)
+
+
+#: the shapes csrc/param_score.cu is held to (lanes, nodes, GPUs): one
+#: node, a ragged 16-node group on either side of 16, the 1,000-node
+#: sweep; one GPU, the default cluster's 8, the kernel's 32
+PARAM_SCORE_LANES = (1, 3, 256)
+PARAM_SCORE_NODES = (1, 15, 16, 17, 1000)
+PARAM_SCORE_GPUS = (1, 8, 32)
+
+
+_GPU_GRID = ("gpu_milli_left", "gpu_milli_total", "gpu_mem_total",
+             "gpu_mask")
+
+
+def _slice_of_wider(x: torch.Tensor) -> torch.Tensor:
+    """x as a view into a tensor one wider in its last axis, at offset 1:
+    not contiguous, and for int32 not 16-byte aligned."""
+    return torch.cat([x[..., :1], x], dim=-1)[..., 1:]
+
+
+def param_score_cases(n: int):
+    """``(label, pod, nodes, weights)`` on the CPU for every lane count and
+    GPU count of the ``PARAM_SCORE_*`` shapes at ``n`` nodes. The cases
+    take turns over shared and per-lane node tables, per-lane and shared
+    weights, prefix and scattered GPU masks, GPU milli totals of 1,000,
+    750 and drawn ones, GPU pods, a lane whose pod fits nowhere and, every
+    third case, the remnants as slices of wider tensors (the kernel's
+    strided path)."""
+    from fks_tpu_torch.sim.types import NodeView
+
+    i = 0
+    for lanes in PARAM_SCORE_LANES:
+        for g in PARAM_SCORE_GPUS:
+            i += 1
+            total = (1000, 750, None)[i % 3]
+            scattered, per_lane = i % 2 == 0, (i // 2) % 2 == 1
+            shared_w, sliced = (i // 4) % 2 == 1, (i + 1) % 3 == 0
+            unfit = int(lanes > 1 and i % 4 in (2, 3))
+            pod, nodes, w = random_policy_views(
+                100 + i, lanes=lanes, n=n, g=g, gpu_heavy=i % 4 == 1,
+                scattered_masks=scattered, milli_total=total,
+                unfit_lanes=unfit)
+            if per_lane:
+                nodes = NodeView(*(
+                    x.expand((lanes,) + tuple(x.shape)).contiguous()
+                    if x.dim() == (2 if name in _GPU_GRID else 1) else x
+                    for name, x in zip(NodeView._fields, nodes)))
+            if sliced:
+                nodes = nodes._replace(
+                    cpu_milli_left=_slice_of_wider(nodes.cpu_milli_left),
+                    gpu_milli_left=_slice_of_wider(nodes.gpu_milli_left))
+            label = (f"L={lanes} N={n} G={g} "
+                     f"{'per-lane' if per_lane else 'shared'} nodes, "
+                     f"{'shared' if shared_w else 'per-lane'} weights, "
+                     f"{'scattered' if scattered else 'prefix'} masks, "
+                     f"milli total {total or 'drawn'}"
+                     f"{', an unfit pod' if unfit else ''}"
+                     f"{', sliced remnants' if sliced else ''}")
+            yield label, pod, nodes, w[0] if shared_w else w
 
 
 def _gpu_indices(bits) -> list:

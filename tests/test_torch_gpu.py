@@ -30,8 +30,9 @@ from fks_tpu_torch.scenarios import get_suite, make_suite_eval
 from fks_tpu_torch.sim import engine, fused
 from fks_tpu_torch.sim.engine import SimConfig
 from fks_tpu_torch.testing import (
-    assert_result_matches, contended_workload, golden_micro_workload,
-    random_policy_views, result_fields, roomy_workload, tied_workload,
+    PARAM_SCORE_NODES, assert_result_matches, contended_workload,
+    golden_micro_workload, param_score_cases, random_policy_views,
+    result_fields, roomy_workload, tied_workload,
 )
 
 pytestmark = pytest.mark.gpu
@@ -322,12 +323,15 @@ def test_probe_times_graph_replays(cuda):
                                          device=cuda) == 0
 
 
-@pytest.mark.parametrize("n", [16, 1000])
+@pytest.mark.parametrize("n", PARAM_SCORE_NODES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_param_score_kernel_equals_plain_version(cuda, n, dtype):
     """csrc/param_score.cu against ``parametric.score_plain`` on the same
-    card views: per-lane and shared weights, CPU and GPU pods, shared and
-    per-lane node tables; one launch per call, counted."""
+    card views and on the CPU: per-lane and shared weights, CPU and GPU
+    pods, shared and per-lane node tables, and the cases of
+    ``testing.param_score_cases`` (L in 1, 3, 256; G in 1, 8, 32;
+    scattered masks, milli totals other than 1,000, unfit pods, strided
+    views); one launch per call, counted."""
     for seed, heavy in ((0, False), (1, True)):
         pod, nodes, w = random_policy_views(seed, lanes=64, n=n,
                                             gpu_heavy=heavy)
@@ -344,6 +348,14 @@ def test_param_score_kernel_equals_plain_version(cuda, n, dtype):
             assert torch.equal(got, want)
             assert torch.equal(parametric.score(weights, cp, lane_nodes,
                                                 dtype=dtype), want)
+    for label, pod, nodes, w in param_score_cases(n):
+        cp = type(pod)(*(x.to(cuda) for x in pod))
+        cn = type(nodes)(*(x.to(cuda) for x in nodes))
+        got = parametric.score(w.to(cuda), cp, cn, dtype=dtype)
+        want = parametric.score_plain(w, pod, nodes, dtype=dtype)
+        assert torch.equal(got.cpu(), want), label
+        assert torch.equal(got, parametric.score_plain(w.to(cuda), cp, cn,
+                                                       dtype=dtype)), label
 
 
 def test_param_score_captures_in_a_graph(cuda):
