@@ -37,13 +37,11 @@ Phases (any failure raises and exits non-zero):
    256 x 1,000 its time per call as a one-call graph replay and as the
    marginal time of 32 calls in one graph (CUDA events, replays queued
    behind a spin), beside an empty kernel of the same launch (the floor),
-   the plain version's time and the bound; with ``--old-csrc DIR`` (a
-   git-ignored copy of an earlier ``csrc/`` whose kernel takes the
-   earlier argument block) that design's times too, in
-   turns old, new, new, old; and the auto-prefilter probe at N = 1,000:
-   k = 0 for ``parametric.score``, k = 64 for ``vm.score_static``; its
-   launches are then counted from 0 around phases 6, 8, 10 and 11 (each
-   must launch it). ``--only 4b`` runs phases 1, 2 and 4b alone;
+   the plain version's time and the bound; and the auto-prefilter probe
+   at N = 1,000: k = 0 for ``parametric.score``, k = 64 for
+   ``vm.score_static``; its launches are then counted from 0 around
+   phases 6, 8, 10 and 11 (each must launch it). ``param_score_phase``
+   runs alone too (it builds its kernel);
 5. ``ParametricEvolution`` for 3 generations at pop 256 on the fused
    engine: the best score must not decrease;
 6. the exact heap engine (plain PyTorch ops, and ``param_score`` for the
@@ -1100,52 +1098,10 @@ PARAM_SCORE_TIMED = ((256, 16), (1, 16), (1, 1000), (4, 1000), (256, 1000))
 MARGINAL_CALLS = 32
 
 
-def build_old_param_score(csrc: Path):
-    """An earlier design of the score kernel, built from a copy of its
-    sources in ``csrc`` (a git-ignored directory) with the port's nvcc
-    flags, and a launcher that takes its argument block (pointers,
-    strides, L, N, G): for the old-against-new comparison of phase 4b."""
-    import ctypes
-
-    import torch
-
-    from fks_tpu_torch.models import parametric
-    from fks_tpu_torch.ops import _ext
-
-    out = _ext.BUILD_DIR / "param_score_pr7.so"
-    _ext.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    subprocess.run([_ext.nvcc_path(), *_ext.NVCC_FLAGS, "-o", str(out),
-                    str(csrc / "param_score.cu")], check=True,
-                   capture_output=True, text=True)
-    lib = ctypes.CDLL(str(out))
-    lib.fks_param_score.argtypes = [ctypes.c_void_p, ctypes.c_int,
-                                    ctypes.c_void_p]
-    lib.fks_param_score.restype = ctypes.c_int
-
-    def launch(params, pod, nodes):
-        views, w, lanes, n, g = parametric._kernel_views(
-            params, pod, nodes, torch.float32)
-        out = torch.empty((lanes, n), dtype=torch.int32,
-                          device=w.device)
-        xs = (*views, w, out)
-        block = [x.data_ptr() for x in xs]
-        for x in xs:
-            block += (list(x.stride()) + [0, 0])[:3]
-        block += [lanes, n, g]
-        err = lib.fks_param_score((ctypes.c_longlong * len(block))(*block),
-                                  4, torch.cuda.current_stream().cuda_stream)
-        if err:
-            raise RuntimeError(f"the earlier param_score failed: {err}")
-        return out
-
-    return launch
-
-
-def param_score_phase(dev, card, old_csrc=None) -> dict:
+def param_score_phase(dev, card) -> dict:
     """Phase 4b (module docstring): csrc/param_score.cu against its plain
     version, its times beside its launch floor and its bound, and the
-    auto-prefilter probe; with ``old_csrc``, the earlier design's times from
-    the same call, in turns."""
+    auto-prefilter probe."""
     import ctypes
 
     import torch
@@ -1159,6 +1115,7 @@ def param_score_phase(dev, card, old_csrc=None) -> dict:
     )
 
     t_phase = time.perf_counter()
+    lib = _ext.param_score_library()
     for line in _ext.ptxas_report("param_score").splitlines():
         if "Used" in line or "spill" in line:
             log(f"[param_score] {line.strip()}")
@@ -1169,41 +1126,43 @@ def param_score_phase(dev, card, old_csrc=None) -> dict:
 
     def held(label, pod, nodes, w):
         """kernel == plain version on the card == plain version on the
-        CPU, float32 and float64; returns the scores compared."""
+        CPU, float32 and float64: ``(scores compared, max abs
+        difference)``."""
         cp, cn = on_card((pod, nodes))
+        err = 0
         for dtype in (torch.float32, torch.float64):
-            got = parametric.score(w.to(dev), cp, cn, dtype=dtype)
-            want = parametric.score_plain(w.to(dev), cp, cn, dtype=dtype)
-            err = int((got.long() - want.long()).abs().max())
-            if err or not torch.equal(
-                    got.cpu(), parametric.score_plain(w, pod, nodes,
-                                                      dtype=dtype)):
+            got = parametric.score(w.to(dev), cp, cn, dtype=dtype).long()
+            for want in (parametric.score_plain(w.to(dev), cp, cn,
+                                                dtype=dtype),
+                         parametric.score_plain(w, pod, nodes, dtype=dtype)):
+                err = max(err, int((got - want.to(dev).long()).abs().max()))
+            if err:
                 raise AssertionError(
                     f"param_score {label} {dtype}: kernel differs from the "
                     f"plain version (max abs {err})")
-        return 2 * got.numel()
+        return 2 * got.numel(), err
 
-    checked = 0
-    for n in (16, 1000):
-        for seed in range(4):
-            checked += held(f"N={n} seed {seed}", *random_policy_views(
-                seed, lanes=256, n=n, gpu_heavy=seed % 2 == 1))
-    cases = 0
+    checked = max_err = cases = 0
+    runs = [(f"N={n} seed {seed}", *random_policy_views(
+        seed, lanes=256, n=n, gpu_heavy=seed % 2 == 1))
+        for n in (16, 1000) for seed in range(4)]
     for n in PARAM_SCORE_NODES:
-        for label, pod, nodes, w in param_score_cases(n):
-            checked += held(label, pod, nodes, w)
+        for case in param_score_cases(n):
+            runs.append(case)
             cases += 1
+    for label, pod, nodes, w in runs:
+        count, err = held(label, pod, nodes, w)
+        checked += count
+        max_err = max(max_err, err)
     log(f"[param_score] 4 x 256 random views at N = 16 and N = 1,000 and "
         f"{cases} cases of L in (1, 3, 256) x N in {PARAM_SCORE_NODES} x G "
         f"in (1, 8, 32) (shared and per-lane tables and weights, scattered "
         f"masks, milli totals other than 1,000, unfit pods, strided views), "
-        f"float32 and float64: {checked} scores, max abs difference 0 "
-        f"against the plain version on the card and the CPU")
+        f"float32 and float64: {checked} scores, max abs difference "
+        f"{max_err} against the plain version on the card and the CPU")
 
     # times at the timed shapes, one-call replays and marginal in-graph
     # calls, beside an empty kernel of the same grid (the launch floor)
-    lib = _ext.param_score_library()
-    old = build_old_param_score(old_csrc) if old_csrc else None
     times = {}
     for lanes, n in PARAM_SCORE_TIMED:
         pod, nodes, w = random_policy_views(7, lanes=lanes, n=n)
@@ -1232,16 +1191,6 @@ def param_score_phase(dev, card, old_csrc=None) -> dict:
                             "lanes_per_block": geo.lanes_per_block,
                             "node_tile": geo.node_tile,
                             "smem_bytes": geo.smem_bytes}}
-        if old is not None:
-            if not torch.equal(old(w, cp, cn), new()):
-                raise AssertionError("the earlier design differs from the new "
-                                     f"one at L={lanes} N={n}")
-            turns = []
-            for which in ("old", "new", "new", "old"):
-                fn = (lambda: old(w, cp, cn)) if which == "old" else new
-                turns.append((which, graph_ms(fn),
-                              graph_ms(fn, calls=MARGINAL_CALLS)))
-            row["turns"] = turns
         # bytes each input is read once, the scores written once: pod
         # fields 4 x L, per-lane node fields 3 x L x N, shared node fields
         # 3 x N and the node mask (1 byte), GPU free milli L x N x G,
@@ -1262,9 +1211,6 @@ def param_score_phase(dev, card, old_csrc=None) -> dict:
             f"({nbytes} bytes); grid {geo.grid} x {geo.threads} threads, "
             f"{geo.lanes_per_block} lanes x {geo.node_tile} nodes per "
             f"block, {geo.smem_bytes} shared bytes; card {card}")
-        for which, one, marginal in row.get("turns", ()):
-            log(f"[param_score]   {which}: {one * 1e3:.2f} us per call, "
-                f"{marginal * 1e3:.2f} us marginal")
     parametric.score.launches = 0  # timing launches are not main-path ones
 
     # the probe at N = 1,000: the parametric policy keeps the dense sweep,
@@ -1291,7 +1237,7 @@ def param_score_phase(dev, card, old_csrc=None) -> dict:
                              "for parametric.score and 64 for the VM")
     parametric.score.launches = 0
     log(f"[param_score] phase {time.perf_counter() - t_phase:.1f} s")
-    return {"max_abs_err": 0, "times": times, "probe": probe,
+    return {"max_abs_err": max_err, "times": times, "probe": probe,
             "checked": checked}
 
 
@@ -1530,22 +1476,7 @@ def serve_phase(dev, card) -> dict:
             sentinel.checked, "http_s": http_s}
 
 
-def parse_args(argv):
-    import argparse
-
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--only", choices=("4b",),
-                    help="run phases 1, 2 and this phase alone, then stop "
-                         "(no contract line)")
-    ap.add_argument("--old-csrc", type=Path,
-                    help="a directory that holds an earlier csrc/ "
-                         "(param_score.cu, node_score.cuh): phase 4b then "
-                         "times that design too, in turns with this one")
-    return ap.parse_args(argv)
-
-
-def main(argv=None) -> int:
-    args = parse_args(argv)
+def main() -> int:
     if not (ROOT / "fks_tpu_torch" / "csrc" / "fused_sim.cu").is_file():
         raise SystemExit("chip_smoke.py must run from a checkout that holds "
                          "fks_tpu_torch/")
@@ -1601,13 +1532,6 @@ def main(argv=None) -> int:
             log(f"[build] {line.strip()}")
             if any(int(n) for n in re.findall(r"(\d+) bytes spill", line)):
                 raise AssertionError(f"the kernel spills registers: {line}")
-
-    if args.only == "4b":
-        ps = param_score_phase(dev, card, args.old_csrc)
-        log(f"[param_score] {json.dumps(ps)}")
-        log(f"[card] {card}")
-        log(f"[done] {time.perf_counter() - t_start:.1f} s")
-        return 0
 
     # ---- 3. kernel vs plain version on the card
     def check(name, wl, cfg, params):
@@ -1715,7 +1639,7 @@ def main(argv=None) -> int:
     hbm_bound_ms = io_bytes / HBM_BYTES_PER_S * 1e3
 
     # ---- 4b. the parametric score kernel against its plain version
-    ps = param_score_phase(dev, card, args.old_csrc)
+    ps = param_score_phase(dev, card)
 
     # ---- 5. evolution
     fused.fused_sim.launches = 0
@@ -1833,4 +1757,4 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main(sys.argv[1:]))
+    sys.exit(main())

@@ -461,19 +461,10 @@ int run(const long long* block, int dtype, void* stream, bool empty) {
       const long long st = block[kFields + 3 * f + d];
       ok = ok && st >= 0 && st < (1LL << 31);
     }
-    // the staged tile's bytes (none for the output and the pod fields
-    // after the first, which share its [LB][4] tile) must fit
-    const long long rows = ((geo[8] >> f) & 1) ? 1 : 1LL << lb;
-    long long bytes = 0;
-    if (f == kPodCpu) bytes = 16LL << lb;
-    else if (f == kWeights) bytes = (16LL << lb) * dtype;
-    else if (f == kNodeMask) bytes = rows << nb;
-    else if (f >= kCpuLeft && f < kNodeMask) bytes = 4 * (rows << nb);
-    else if (f == kGpuMask) bytes = (rows << nb) << gsl;
-    else if (f == kGpuMilliLeft || f == kGpuMilliTotal)
-      bytes = 4 * rs * (rows << nb);
+    // the staged tiles' layout is the host's (launch_geometry, held by the
+    // CPU tests); here only that each offset is aligned and inside smem
     const long long off = geo[10 + f];
-    ok = ok && off >= 0 && off % 16 == 0 && off + bytes <= smem;
+    ok = ok && off >= 0 && off % 16 == 0 && off < smem;
   }
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   if (gy == 0) return 0;  // no lanes
