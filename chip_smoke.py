@@ -145,6 +145,7 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+CODE_PODS = 32  # phase 13 (d): pods of the sharded code eval (VM-bound)
 CHAMPION = (ROOT / "policies" / "discovered"
             / "funsearch_20260801_045536_score0.5365.json")
 TOL = 2e-6
@@ -1476,6 +1477,395 @@ def serve_phase(dev, card) -> dict:
             sentinel.checked, "http_s": http_s}
 
 
+def results_equal(label, got, want, lanes=None) -> None:
+    """Every field of two SimResults bit-identical (``lanes`` cuts both)."""
+    import torch
+
+    from fks_tpu_torch.sim.types import tensor_leaves
+
+    for name in ("policy_score", "scheduled_pods", "events_processed",
+                 "assigned_node", "assigned_gpus", "num_snapshots",
+                 "num_fragmentation_events", "max_nodes", "failed",
+                 "truncated", "cpu_left", "mem_left", "gpu_left",
+                 "gpu_milli_left", "avg_cpu_utilization",
+                 "gpu_fragmentation_score"):
+        a, b = getattr(got, name), getattr(want, name)
+        if lanes is not None:
+            a, b = a[:lanes], b[:lanes]
+        if not torch.equal(a.cpu(), b.cpu()):
+            raise AssertionError(f"{label}: {name} differs")
+    if (got.trace is None) != (want.trace is None):
+        raise AssertionError(f"{label}: one result has a trace")
+    if got.trace is not None:
+        for a, b in zip(tensor_leaves(got.trace), tensor_leaves(want.trace)):
+            if not torch.equal(a.cpu(), b.cpu()):
+                raise AssertionError(f"{label}: decision traces differ")
+
+
+def mesh_phase(dev, card, wl, params, ref) -> dict:
+    """Phase 13 (module docstring): the device mesh and the champion
+    portfolio on the card, with logical shards of the one card standing
+    in for devices. ``ref`` is phase 4's unsharded fused result of
+    ``params`` on ``wl``."""
+    import os
+    import socket
+    import tempfile
+    import threading
+    import urllib.request
+
+    import torch
+    import torch.distributed as dist
+
+    from fks_tpu_torch.data import TraceParser
+    from fks_tpu_torch.funsearch import template
+    from fks_tpu_torch.funsearch.backend import CodeEvaluator
+    from fks_tpu_torch.funsearch.device_evolution import ParametricEvolution
+    from fks_tpu_torch.models import parametric
+    from fks_tpu_torch.obs.layout import LayoutSpec
+    from fks_tpu_torch.obs.telemetry import CompileWatcher
+    from fks_tpu_torch.parallel import (
+        init_distributed, layout_mesh, make_population_eval,
+        make_sharded_eval, pad_population, population_mesh,
+    )
+    from fks_tpu_torch.parallel.mesh import top_k_real
+    from fks_tpu_torch.portfolio import (
+        PortfolioEngine, PortfolioService, Router, portfolio_selftest,
+    )
+    from fks_tpu_torch.scenarios import (
+        aggregate, get_suite, make_sharded_suite_eval, make_suite_eval,
+    )
+    from fks_tpu_torch.serve import (
+        ChampionSpec, ServeEngine, ShapeEnvelope, VMServeEngine,
+        load_champion, make_http_server, selftest,
+    )
+    from fks_tpu_torch.sim import fused
+    from fks_tpu_torch.sim.engine import SimConfig
+
+    t_phase = time.perf_counter()
+    out = {}
+    cases = {}
+    parser = TraceParser()
+    mesh4 = population_mesh([dev] * 4)
+    cfg = SimConfig(track_ctime=False)
+
+    def case(name, fn):
+        t0 = time.perf_counter()
+        with CompileWatcher() as w:
+            held = fn()
+        secs = time.perf_counter() - t0
+        cases[name] = {"seconds": secs,
+                       "captures": w.backend_compile_count}
+        log(f"[mesh] ({name}) {held}; {secs:.1f} s, "
+            f"{w.backend_compile_count} graph captures; card {card}")
+
+    # (a) the sharded fused eval at full width
+    def a():
+        mesh1 = population_mesh()
+        want_idx = top_k_real(ref.policy_score, POP, 8)[1]
+        ms = {}
+        for label, mesh in (("1", mesh1), ("4", mesh4)):
+            ev = make_sharded_eval(wl, mesh, cfg=cfg, engine="fused")
+            n0 = fused.fused_sim.launches
+            scores, idx, _ = ev(params)
+            per_eval = fused.fused_sim.launches - n0
+            results_equal(f"(a) {label} shard(s)", ev.results(params), ref)
+            if not torch.equal(scores, ref.policy_score) \
+                    or not torch.equal(idx, want_idx):
+                raise AssertionError(f"(a) {label}: scores or elites differ")
+            t0 = time.perf_counter()
+            for _ in range(3):
+                ev(params)
+            torch.cuda.synchronize()
+            ms[label] = (time.perf_counter() - t0) / 3 * 1e3
+            out[f"launches_per_eval_{label}"] = per_eval
+        p250, real = pad_population(params[:250], mesh4)
+        scores, idx, _ = make_sharded_eval(wl, mesh4, cfg=cfg,
+                                           engine="fused")(p250, real)
+        if p250.shape[0] != 252 or real != 250 \
+                or not torch.equal(scores[:250], ref.policy_score[:250]) \
+                or not torch.equal(idx, top_k_real(ref.policy_score[:250],
+                                                   250, 8)[1]) \
+                or bool((idx >= 250).any()):
+            raise AssertionError("(a) pop 250 padded to 252 differs")
+        out["fused_ms_per_eval"] = ms
+        return (f"sharded fused eval, pop {POP}, full default trace: every "
+                f"field bit-identical to the unsharded eval at 1 shard and "
+                f"4 logical shards, elites the stable top-8; pop 250 padded "
+                f"to 252 (real_count 250) equal, no pad lane among the "
+                f"elites; {ms['1']:.3f} ms per eval at 1 shard, "
+                f"{ms['4']:.3f} at 4 (launches per eval "
+                f"{out['launches_per_eval_1']} and "
+                f"{out['launches_per_eval_4']})")
+
+    case("a", a)
+
+    # (b) the sharded exact eval, and its decision trace
+    wl512 = parser.parse_workload(max_pods=512).to(dev)
+
+    def b():
+        for trace in (False, True):
+            c = SimConfig(decision_trace=trace)
+            want = make_population_eval(wl512, cfg=c, device=dev)(params[:16])
+            ev = make_sharded_eval(wl512, mesh4, cfg=c)
+            got = ev(params[:16])
+            results_equal(f"(b) trace={trace}", ev.results(params[:16]), want)
+            if not torch.equal(got[0], want.policy_score):
+                raise AssertionError("(b) sharded exact scores differ")
+            if trace:
+                for x, y in zip((got[3].data, got[3].count),
+                                (want.trace.data, want.trace.count)):
+                    if not torch.equal(x, y):
+                        raise AssertionError("(b) returned trace differs")
+        return ("exact eval, first 512 pods, pop 16, 4 logical shards: "
+                "every field equal to the unsharded exact eval, and with "
+                "decision_trace the traces too")
+
+    case("b", b)
+
+    # (c) the generation step through ParametricEvolution
+    def c():
+        def make():
+            return ParametricEvolution(wl, pop_size=POP, cfg=cfg,
+                                       engine="fused", mesh=mesh4, seed=0)
+
+        first = make()
+        before = first.params.clone()
+        scores = first.eval(before).policy_score
+        first.run(1)
+        lead = top_k_real(scores, POP, 4)[1]
+        if not torch.equal(first.params[:4], before[lead]):
+            raise AssertionError("(c) the elites left the leading slots")
+        straight = make()
+        straight.run(3)
+        bests = [h.best_score for h in straight.history]
+        if any(y < x for x, y in zip(bests, bests[1:])):
+            raise AssertionError(f"(c) the best score fell: {bests}")
+        half = make()
+        half.run(2)
+        resumed = make()
+        with tempfile.TemporaryDirectory() as tmp:
+            resumed.restore_checkpoint(half.save_checkpoint(
+                os.path.join(tmp, "pe")))
+        resumed.run(1)
+        if not torch.equal(resumed.params, straight.params):
+            raise AssertionError("(c) the resumed run differs")
+        return (f"ParametricEvolution, 4 logical shards, fused, pop {POP}: "
+                f"elites in the leading slots, best {bests} never falls, "
+                f"2 generations + checkpoint + 1 == 3 in a row")
+
+    case("c", c)
+
+    # (d) the sharded code eval
+    champ = load_champion(str(CHAMPION))
+    codes = list(template.seed_policies().values()) + [champ.code]
+    wl_code = parser.parse_workload(max_pods=CODE_PODS).to(dev)
+    mesh2 = population_mesh([dev] * 2)
+
+    def d():
+        got = {}
+        for engine, seg in (("exact", "0"), ("flat", "32")):
+            os.environ["FKS_VM_SEG_STEPS"] = seg
+            try:
+                sharded = CodeEvaluator(wl_code, engine=engine, mesh=mesh2)
+                single = CodeEvaluator(wl_code, engine=engine, device=dev)
+                a_, b_ = sharded.evaluate(codes), single.evaluate(codes)
+            finally:
+                del os.environ["FKS_VM_SEG_STEPS"]
+            if [r.score for r in a_] != [r.score for r in b_] \
+                    or sharded.vm_batch_count != 1 \
+                    or any(not torch.equal(x.result.assigned_node,
+                                           y.result.assigned_node)
+                           for x, y in zip(a_, b_)):
+                raise AssertionError(f"(d) {engine}: sharded != one device")
+            got[engine] = [r.score for r in a_]
+        return (f"CodeEvaluator, 2 logical shards, {len(codes)} codes (the "
+                f"seeds and the 0.5365 champion) on the first {CODE_PODS} "
+                f"pods: exact (seg_steps 0) {got['exact']} and flat "
+                f"(seg_steps 32) {got['flat']} equal the single-device "
+                f"scores and placements")
+
+    case("d", d)
+
+    # (e) the sharded suite eval, both layouts
+    def e():
+        suite = get_suite("default8", parser.parse_workload(max_pods=512))
+        want = make_suite_eval(suite, population=True,
+                               device=dev)(params[:8]).policy_score
+        scn = LayoutSpec(shard=("candidates", "scenarios"),
+                         vmap=("candidates", "scenarios"))
+        for label, mesh, layout in (
+                ("2 shards", population_mesh([dev] * 2), None),
+                ("2 x 2 scenario-sharded", layout_mesh([dev] * 4, 2), scn)):
+            robust, per, idx, _ = make_sharded_suite_eval(
+                suite, mesh, layout=layout)(params[:8])
+            if not torch.equal(per, want) \
+                    or not torch.equal(robust, aggregate(want)) \
+                    or not torch.equal(idx, top_k_real(aggregate(want), 8,
+                                                       8)[1]):
+                raise AssertionError(f"(e) {label} differs")
+        return ("default8 (first 512 pods), pop 8: the sharded suite eval "
+                "on 2 logical shards and on layout_mesh(scenario_shards=2) "
+                "equals make_suite_eval(population=True)")
+
+    case("e", e)
+
+    # (f) mesh-sharded serving
+    pins = json.loads((ROOT / "tests" / "fixtures" / "serve_pins.json")
+                      .read_text())
+    first, second = (load_champion(str(ROOT / "policies" / "discovered"
+                                       / name)) for name in pins["champions"])
+    full = parser.parse_workload()
+    queries = pins["queries"]
+
+    def same_as_pins(label, answers, name):
+        for got, pin in zip(answers, pins["answers"][name]):
+            if got["placements"] != pin["placements"] \
+                    or abs(got["score"] - pin["score"]) > TOL:
+                raise AssertionError(f"(f) {label} differs from the pins")
+
+    def f():
+        held = []
+        for cls in (ServeEngine, VMServeEngine):
+            eng = cls(first, full, mesh=mesh4)
+            st = selftest(eng, count=4, pods_per_query=4)
+            if not st["ok"] or st["max_drift"] != 0.0:
+                raise AssertionError(f"(f) {cls.__name__} selftest: {st}")
+            same_as_pins(cls.__name__, eng.answer_batch(queries),
+                         pins["champions"][0])
+            with CompileWatcher() as w:
+                same_as_pins(cls.__name__ + " warm",
+                             eng.answer_batch(queries), pins["champions"][0])
+                if cls is VMServeEngine:
+                    old = eng.swap_program(second)
+                    same_as_pins("swapped", eng.answer_batch(queries),
+                                 pins["champions"][1])
+                    eng.swap_program(old)
+            if w.backend_compile_count:
+                raise AssertionError(f"(f) {cls.__name__}: "
+                                     f"{w.backend_compile_count} captures "
+                                     "warm")
+            held.append(cls.__name__)
+        return (f"{' and '.join(held)} on 4 logical shards, 0.5365 champion"
+                f", default cluster: selftest drift 0, 8 queries equal "
+                f"serve_pins.json, 0 captures warm and across swap_program")
+
+    case("f", f)
+
+    # (g) the portfolio
+    from fks_tpu_torch.cli import _PORTFOLIO_LOGICS
+
+    def g():
+        champs = [ChampionSpec(code=template.fill_template(lg),
+                               score=0.5 + 0.1 * i, source=f"<builtin-{i}>")
+                  for i, lg in enumerate(_PORTFOLIO_LOGICS[:3])]
+        eng = PortfolioEngine(champs, full, n_slots=4, device=dev,
+                              envelope=ShapeEnvelope(max_pods=64,
+                                                     max_batch=4))
+        eng.warmup(lane_buckets=[1, 4], pod_buckets=[16])
+        st = portfolio_selftest(eng, count=4)
+        if not st["ok"] or st["max_drift"] != 0.0:
+            raise AssertionError(f"(g) portfolio_selftest: {st}")
+        base = eng.base_pods
+        stop, errors = threading.Event(), []
+
+        def hammer(slot):
+            i = 0
+            while not stop.is_set():
+                q = [dict(base[(i + j) % len(base)]) for j in range(3)]
+                try:
+                    eng.answer_batch([q], slots=[slot])
+                except Exception as exc:  # noqa: BLE001 — reported below
+                    errors.append(repr(exc))
+                    return
+                i += 1
+
+        with CompileWatcher() as w:
+            threads = [threading.Thread(target=hammer, args=(s,))
+                       for s in range(4)]
+            for t in threads:
+                t.start()
+            old = eng.swap_slot(1, champs[2])
+            if old.source != "<builtin-1>":
+                raise AssertionError("(g) swap_slot's rollback handle")
+            eng.swap_slot(1, old)
+            stop.set()
+            for t in threads:
+                t.join(timeout=120)
+        if w.backend_compile_count or errors:
+            raise AssertionError(f"(g) swap under load: "
+                                 f"{w.backend_compile_count} captures, "
+                                 f"errors {errors[:2]}")
+        router = Router(eng.n_slots, pins={"vip": 1},
+                        ab_split={0: 0.5, 2: 0.5})
+        expect = Router(eng.n_slots, pins={"vip": 1},
+                        ab_split={0: 0.5, 2: 0.5})
+        service = PortfolioService(eng, router=router, max_wait_s=0.002)
+        server = make_http_server(service, 0)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        url = f"http://127.0.0.1:{server.server_address[1]}/query"
+        try:
+            for k, tenant in enumerate(("vip", "t", "t", "vip", "t")):
+                pods = base[k:k + 3]
+                want_slot, _ = expect.route(f"h{k}", tenant, pods)
+                req = urllib.request.Request(url, data=json.dumps(
+                    {"id": f"h{k}", "tenant": tenant, "pods": pods}).encode(),
+                    headers={"Content-Type": "application/json"})
+                with urllib.request.urlopen(req, timeout=300) as r:
+                    ans = json.loads(r.read())
+                solo = eng.answer_batch([pods], slots=[want_slot])[0]
+                if ans["slot"] != want_slot \
+                        or ans["placements"] != solo["placements"]:
+                    raise AssertionError(f"(g) HTTP request {k} routed to "
+                                         f"{ans['slot']}, want {want_slot}")
+        finally:
+            server.shutdown()
+            server.server_close()
+            service.close()
+            thread.join(timeout=60)
+        t0 = time.perf_counter()
+        sub = subprocess.run(
+            [sys.executable, "-m", "fks_tpu_torch.cli", "portfolio",
+             "--selftest", "4"], cwd=ROOT, capture_output=True, text=True,
+            timeout=600)
+        if sub.returncode != 0:
+            raise AssertionError(f"(g) cli portfolio --selftest 4 exited "
+                                 f"{sub.returncode}: {sub.stderr[-2000:]}")
+        out["cli_portfolio_s"] = time.perf_counter() - t0
+        return (f"PortfolioEngine, 3 builtin logics + 1 spare slot, default "
+                f"cluster: portfolio_selftest(count=4) ok, max_drift 0.0; "
+                f"swap_slot out and back under 4 querying threads: 0 "
+                f"captures, no errors; HTTP pin/ab routing as the Router "
+                f"says; `cli portfolio --selftest 4` exited 0 in "
+                f"{out['cli_portfolio_s']:.1f} s")
+
+    case("g", g)
+
+    # (h) the process group at world size 1
+    def h():
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        n = init_distributed(f"localhost:{port}", 1, 0, backend="nccl")
+        try:
+            local = ref.policy_score.contiguous()
+            parts = [torch.empty_like(local)]
+            dist.all_gather(parts, local)
+            if n != 1 or not torch.equal(parts[0], local):
+                raise AssertionError("(h) all_gather differs")
+        finally:
+            dist.destroy_process_group()
+        return ("init_distributed over NCCL at world size 1 (localhost): "
+                "all_gather of (a)'s score vector equals it; group "
+                "destroyed")
+
+    case("h", h)
+    out["cases"] = cases
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[mesh] phase {out['seconds']:.1f} s; card {card}")
+    return out
+
+
 def main() -> int:
     if not (ROOT / "fks_tpu_torch" / "csrc" / "fused_sim.cu").is_file():
         raise SystemExit("chip_smoke.py must run from a checkout that holds "
@@ -1701,7 +2091,18 @@ def main() -> int:
     log(f"[serve] kernel launches in phase 12: {serve_launches} (the "
         f"champion is a VM program: the serve path runs no hand kernel)")
 
-    # ---- 13. summary
+    # ---- 13. the mesh and the portfolio
+    fused.fused_sim.launches = parametric.score.launches = 0
+    summary["mesh"] = mesh_phase(dev, card, wl, params, res)
+    mesh_launches = {"fused_sim": fused.fused_sim.launches,
+                     "param_score": parametric.score.launches}
+    if not all(mesh_launches.values()):
+        raise AssertionError(f"phase 13 left a kernel unlaunched: "
+                             f"{mesh_launches}")
+    ps_launches["13"] = mesh_launches["param_score"]
+    log(f"[mesh] kernel launches in phase 13: {mesh_launches}")
+
+    # ---- 14. summary
     log(f"[summary] {json.dumps(summary)}")
     log(f"[card] {card}")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
@@ -1725,6 +2126,11 @@ def main() -> int:
         "mean_lane_steps": mean_lane_steps,
         "ns_per_critical_step": ns_per_critical_step,
         "pop": POP, "check": "ok",
+        "launches_by_phase": {"4": launches,
+                              "13": mesh_launches["fused_sim"]},
+        "mesh_launches_per_eval": {
+            "1_shard": summary["mesh"]["launches_per_eval_1"],
+            "4_logical_shards": summary["mesh"]["launches_per_eval_4"]},
         "card": card,
     }, {
         "name": "param_score", "route": "cuda",

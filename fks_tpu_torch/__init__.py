@@ -20,7 +20,11 @@ engine; robust fitness over scenario suites (``scenarios``,
 candidates (``funsearch.sandbox``, ``template``, ``transpiler`` and the
 ``vm``); the large-cluster tier (``SimConfig.node_prefilter_k``,
 ``state_pack``, ``sim.flat.make_segmented_population_run``); the FunSearch
-evolve loop; and champion serving (``serve``, with ``python -m
-fks_tpu_torch.cli serve``). Two hand-written Hopper kernels:
+evolve loop; champion serving (``serve``, with ``python -m
+fks_tpu_torch.cli serve``); the device mesh (``parallel.mesh``: sharded
+population, generation, code and suite evals and mesh-sharded serving,
+with logical shards standing in for devices); and the champion
+portfolio (``portfolio``, ``python -m fks_tpu_torch.cli portfolio``). Two
+hand-written Hopper kernels:
 ``csrc/fused_sim.cu`` and ``csrc/param_score.cu`` (``parametric.score``).
 """

@@ -1,17 +1,25 @@
-"""The port's command line: ``python -m fks_tpu_torch.cli serve ...``.
+"""The port's command line: ``python -m fks_tpu_torch.cli serve ...`` and
+``... portfolio ...``.
 
-Port of the ``serve`` subcommand of fks_tpu.cli (fks_tpu/cli.py:589-700,
-arguments :1812-1927): serve a pinned champion as a warm what-if query
+Port of the ``serve`` and ``portfolio`` subcommands of fks_tpu.cli
+(fks_tpu/cli.py:589-700 and :896-1051, arguments :1812-1927 and
+:1970-2023). ``serve`` serves a pinned champion as a warm what-if query
 engine — build or load an artifact, optionally capture every shape bucket
 up front, then answer queries over stdin/JSONL, a file, or a localhost
-HTTP listener. ``--selftest N`` instead runs the batched-vs-unbatched
-exact-parity sweep and exits nonzero on any drift.
+HTTP listener; ``--selftest N`` instead runs the batched-vs-unbatched
+exact-parity sweep and exits nonzero on any drift. ``portfolio`` serves N
+resident champions from one set of graphs with per-request routing;
+``--selftest N`` runs the per-slot and mixed-batch parity sweep, then
+swaps one slot out and back under live traffic and fails on any capture.
 
 Runs on the card (``--device cuda``, the default) or, with ``--device
-cpu``, on the plain PyTorch path. fks_tpu's other subcommands, the run
-directory and the metrics file wait for ROADMAP queue 1 item 6; options
-that need the mesh, the promotion log or the drain coordinator raise and
-name their item.
+cpu`` (or ``--cpu``), on the plain PyTorch path. ``--devices N`` shards
+the lane axis over a mesh: on the card the first N CUDA devices (it
+raises when there are fewer), on the CPU N logical shards of the one CPU
+device. fks_tpu's ``--devices`` instead sizes a virtual CPU device mesh
+and requires ``--cpu``. fks_tpu's other subcommands, the run directory
+and the metrics file wait for ROADMAP queue 1 item 6; options that need
+the promotion log or the drain coordinator raise and name their item.
 """
 from __future__ import annotations
 
@@ -27,11 +35,24 @@ def _parse_workload(args):
                                         pod_file=args.trace)
 
 
+def _device(args) -> str:
+    return "cpu" if args.cpu else args.device
+
+
+def _mesh(args):
+    """``--devices N``: a population mesh of the first N CUDA devices
+    (raises with fewer), or of N logical shards on the CPU; None for 0."""
+    if not args.devices:
+        return None
+    from fks_tpu_torch.parallel.mesh import cuda_devices, population_mesh
+
+    if _device(args) == "cpu":
+        return population_mesh(["cpu"] * args.devices)
+    return population_mesh(cuda_devices(args.devices))
+
+
 def _check_waiting_options(args) -> None:
     """Options of fks_tpu's serve that wait for unported modules."""
-    if args.devices:
-        raise ValueError("--devices (mesh-sharded serving) needs "
-                         "parallel/mesh.py: ROADMAP queue 1 item 3")
     if args.follow_ledger:
         raise ValueError("--follow-ledger needs pipeline.PromotionLog and "
                          "the promotion controller: ROADMAP queue 1 item 5")
@@ -53,11 +74,13 @@ def cmd_serve(args) -> int:
     from fks_tpu_torch.serve.service import run_http, run_jsonl
 
     rec = obs.get_recorder()
+    mesh = _mesh(args)
+    device = None if mesh is not None else _device(args)
     with watch_compiles(rec):
         ledger_dir = args.ledger_dir or CHAMPION_DIR
         if args.artifact:
             engine = ServeEngine.load(args.artifact, recorder=rec,
-                                      device=args.device)
+                                      mesh=mesh, device=device)
         else:
             champ_path = args.champion or latest_champion(ledger_dir,
                                                           recorder=rec)
@@ -72,8 +95,8 @@ def cmd_serve(args) -> int:
                 envelope=ShapeEnvelope(max_pods=args.max_pods,
                                        max_batch=args.max_batch),
                 engine=args.engine, prefilter_k=args.prefilter_k,
-                state_pack=args.state_pack, recorder=rec,
-                device=args.device)
+                state_pack=args.state_pack, mesh=mesh, recorder=rec,
+                device=device)
             engine = None
             if args.serve_engine == "vm":
                 from fks_tpu_torch.funsearch.vm import VMUnsupported
@@ -105,7 +128,9 @@ def cmd_serve(args) -> int:
               f"kind={engine.engine_kind}"
               + (f" capacity={cap}" if cap else "")
               + f" prefilter_k={engine.prefilter_k}"
-              + f" device={engine.device}", file=sys.stderr)
+              + f" device={engine.device}"
+              + (f" shards={engine._shards}" if mesh is not None else ""),
+              file=sys.stderr)
         if args.save_artifact:
             if args.warmup:
                 engine.warmup()
@@ -169,25 +194,196 @@ def cmd_serve(args) -> int:
     return 1 if errors else 0
 
 
+#: deterministic built-in portfolio (fks_tpu's): four template logics with
+#: distinct placement behaviour, so the portfolio selftest runs before any
+#: evolution has produced a ledger. Raw-milli scores: the normalized
+#: variants collapse into all-tie policies under the template's int()
+#: truncation and could not catch a cross-slot routing bug.
+_PORTFOLIO_LOGICS = (
+    "score = 1000",
+    "score = node.cpu_milli_left - pod.cpu_milli",
+    "score = node.memory_mib_left - pod.memory_mib",
+    "score = pod.cpu_milli - node.cpu_milli_left",
+)
+
+
+def cmd_portfolio(args) -> int:
+    """Multi-tenant champion-portfolio serving (``portfolio``): N resident
+    policies in one set of graphs, routed per request. ``--selftest N``
+    runs the per-slot parity sweep and then swaps one slot out and back
+    under live traffic with a capture watcher; ``--http`` serves the
+    routed front instead."""
+    from fks_tpu_torch import obs
+    from fks_tpu_torch.funsearch import template
+    from fks_tpu_torch.portfolio import (
+        PortfolioEngine, PortfolioService, Router, portfolio_selftest,
+        vm_coverage_split,
+    )
+    from fks_tpu_torch.serve import ChampionSpec, ShapeEnvelope, load_champion
+    from fks_tpu_torch.serve.service import run_http, run_jsonl
+
+    rec = obs.get_recorder()
+    mesh = _mesh(args)
+    device = None if mesh is not None else _device(args)
+    with obs.watch_compiles(rec):
+        if args.champion:
+            champs = [load_champion(p) for p in args.champion]
+            wl = _parse_workload(args)
+        else:
+            from fks_tpu_torch.data.synthetic import synthetic_workload
+            champs = [ChampionSpec(code=template.fill_template(lg),
+                                   score=0.5 + 0.1 * i,
+                                   source=f"<builtin-{i}>")
+                      for i, lg in enumerate(_PORTFOLIO_LOGICS)]
+            wl = synthetic_workload(16, 32, seed=args.seed)
+        resident, outside = vm_coverage_split(
+            champs, wl.cluster.n_padded, wl.cluster.g_padded)
+        if not resident:
+            print("error: no champion is VM-lowerable at this cluster "
+                  "shape — a portfolio needs at least one resident slot",
+                  file=sys.stderr)
+            return 2
+        for c in outside:
+            print(f"champion {c.source or '<inline>'} outside the VM "
+                  "vocabulary; excluded from the slot table (serve it "
+                  "through the Router's fallback engine)", file=sys.stderr)
+        n_slots = args.slots or len(resident) + 1  # +1 spare staging slot
+        engine = PortfolioEngine(
+            resident, wl, n_slots=n_slots,
+            envelope=ShapeEnvelope(max_pods=args.max_pods,
+                                   max_batch=args.max_batch),
+            engine=args.engine, mesh=mesh, recorder=rec, device=device)
+        print(f"portfolio: {len(resident)} resident / {len(outside)} "
+              f"fallback champions, {engine.n_slots} slots, "
+              f"capacity={engine.program_capacity}, device={engine.device}"
+              + (f", shards={engine._shards}" if mesh is not None else ""),
+              file=sys.stderr)
+        engine.warmup()
+        if args.selftest:
+            return _portfolio_selftest_run(args, engine, resident,
+                                           portfolio_selftest)
+        pins = {}
+        for spec in args.pin:
+            tenant, _, slot = spec.partition("=")
+            pins[tenant] = int(slot)
+        ab = {}
+        for spec in args.ab:
+            slot, _, weight = spec.partition("=")
+            ab[int(slot)] = float(weight)
+        router = Router(engine.n_slots, pins=pins, ab_split=ab or None)
+        service = PortfolioService(engine, router=router, recorder=rec,
+                                   max_wait_s=args.max_wait_ms / 1e3,
+                                   max_queue=args.max_queue,
+                                   accounting=True)
+        try:
+            if args.http:
+                print(f"listening on http://127.0.0.1:{args.http} "
+                      "(POST /query, GET /stats, GET /healthz)",
+                      file=sys.stderr)
+                run_http(service, args.http)
+            else:
+                run_jsonl(service)
+        finally:
+            service.close()
+            print(json.dumps(service.summary()), file=sys.stderr)
+    return 0
+
+
+def _portfolio_selftest_run(args, engine, resident, portfolio_selftest):
+    """The selftest body: per-slot and mixed-batch parity, then one slot
+    swapped out and back while threads query every resident slot, with
+    zero graph captures."""
+    import threading
+
+    from fks_tpu_torch.funsearch import template
+    from fks_tpu_torch.obs.telemetry import CompileWatcher
+    from fks_tpu_torch.serve import ChampionSpec
+
+    result = portfolio_selftest(engine, count=args.selftest,
+                                pods_per_query=args.pods_per_query,
+                                tol=args.audit_tol)
+    target = min(1, engine.n_slots - 1)
+    promoted = ChampionSpec(
+        code=template.fill_template(
+            "score = 3000 + (node.cpu_milli_left - pod.cpu_milli) "
+            "/ max(1, node.cpu_milli_total)"),
+        score=9.9, source="<promoted>")
+    base = engine.base_pods
+    stop = threading.Event()
+    errors = []
+
+    def _hammer(slot):
+        i = 0
+        while not stop.is_set():
+            q = [dict(base[(i + j) % len(base)]) for j in range(3)]
+            try:
+                ans = engine.answer_batch([q], slots=[slot])[0]
+                if ans.get("score") is None:
+                    errors.append(f"slot {slot}: empty answer")
+            except Exception as e:  # noqa: BLE001 — surfaced in result
+                errors.append(f"slot {slot}: {type(e).__name__}: {e}")
+                return
+            i += 1
+
+    watcher = CompileWatcher().install()
+    try:
+        threads = [threading.Thread(target=_hammer, args=(s,))
+                   for s in range(min(len(resident), engine.n_slots))]
+        for t in threads:
+            t.start()
+        old = engine.swap_slot(target, promoted)
+        engine.swap_slot(target, old)
+        stop.set()
+        for t in threads:
+            t.join(timeout=60)
+        compiles = watcher.backend_compile_count
+    finally:
+        stop.set()
+        watcher.uninstall()
+    result["swap"] = {"slot": target, "swaps": 2, "compiles": compiles,
+                      "errors": errors[:5],
+                      **{k: engine.last_swap_breakdown[k]
+                         for k in ("swap_ms", "h2d_ms", "h2d_bytes")}}
+    result["ok"] = bool(result["ok"] and compiles == 0 and not errors)
+    print(json.dumps(result, indent=2))
+    return 0 if result["ok"] else 1
+
+
+def _add_placement_flags(p) -> None:
+    p.add_argument("--device", default="cuda",
+                   help="where the engine runs: 'cuda' (default) or "
+                        "'cpu' (the plain PyTorch path)")
+    p.add_argument("--cpu", action="store_true",
+                   help="the same as --device cpu")
+    p.add_argument("--devices", type=int, default=0,
+                   help="mesh-sharded serving: shard the lane axis over "
+                        "the first N CUDA devices (raises with fewer), or "
+                        "with --cpu over N logical CPU shards; unlike "
+                        "fks_tpu, it does not require --cpu (0 = one "
+                        "device)")
+
+
+def _add_trace_flags(p) -> None:
+    p.add_argument("--trace", default="openb_pod_list_default.csv",
+                   help="pod CSV under benchmarks/traces/csv/")
+    p.add_argument("--nodes", default="gpu_models_filtered.csv",
+                   help="node CSV under benchmarks/traces/csv/")
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="fks_tpu_torch", description=__doc__)
     sub = ap.add_subparsers(dest="cmd", required=True)
     sv = sub.add_parser("serve",
                         help="serve a pinned champion as a warm what-if "
                              "query engine (JSONL/HTTP)")
-    sv.add_argument("--device", default="cuda",
-                    help="where the engine runs: 'cuda' (default) or "
-                         "'cpu' (the plain PyTorch path)")
+    _add_placement_flags(sv)
     sv.add_argument("--engine", choices=("exact", "flat", "fused"),
                     default="exact",
                     help="simulation engine: 'exact' replicates the "
                          "reference bit-for-bit; 'flat' trades the "
                          "documented retry-rule divergence for throughput; "
                          "'fused' refuses (parametric populations only)")
-    sv.add_argument("--trace", default="openb_pod_list_default.csv",
-                    help="pod CSV under benchmarks/traces/csv/")
-    sv.add_argument("--nodes", default="gpu_models_filtered.csv",
-                    help="node CSV under benchmarks/traces/csv/")
+    _add_trace_flags(sv)
     sv.add_argument("--champion", default="",
                     help="champion JSON from the evolution ledger "
                          "(default: best under policies/discovered/)")
@@ -235,9 +431,6 @@ def build_parser() -> argparse.ArgumentParser:
                     help="SimConfig.state_pack for the serving engine; "
                          "also engages the 16-bit packed query-upload "
                          "path (bit-identical answers)")
-    sv.add_argument("--devices", type=int, default=0,
-                    help="(mesh-sharded serving waits for the mesh; "
-                         "raises unless 0)")
     sv.add_argument("--warmup", action="store_true",
                     help="capture every (lane, pod) shape bucket before "
                          "answering")
@@ -274,6 +467,57 @@ def build_parser() -> argparse.ArgumentParser:
                     help="per-tenant accounting + query fingerprinting "
                          "(obs.workload); off by default")
     sv.set_defaults(fn=cmd_serve)
+
+    pf = sub.add_parser(
+        "portfolio",
+        help="serve N resident champions from one set of graphs with "
+             "per-request routing (pin / affinity / A-B / coverage "
+             "fallback)")
+    _add_placement_flags(pf)
+    pf.add_argument("--engine", choices=("exact", "flat"), default="exact",
+                    help="simulation engine (default exact)")
+    _add_trace_flags(pf)
+    pf.add_argument("--champion", action="append", default=[],
+                    help="champion JSON to load into a slot (repeatable; "
+                         "default: four deterministic built-in template "
+                         "champions over a synthetic workload)")
+    pf.add_argument("--slots", type=int, default=0,
+                    help="slot-table size (default: resident champions "
+                         "+ 1 spare slot)")
+    pf.add_argument("--seed", type=int, default=0,
+                    help="synthetic-workload seed for the built-in "
+                         "champion set (default 0)")
+    pf.add_argument("--max-pods", type=int, default=64,
+                    help="shape envelope: largest query (default 64)")
+    pf.add_argument("--max-batch", type=int, default=4,
+                    help="shape envelope: largest coalesced batch per "
+                         "shard (default 4)")
+    pf.add_argument("--max-wait-ms", type=float, default=5.0,
+                    help="flush policy: max ms the oldest pending "
+                         "request waits for batch-mates (default 5)")
+    pf.add_argument("--max-queue", type=int, default=0,
+                    help="bounded queue depth for admission-control "
+                         "shedding (0 = unbounded)")
+    pf.add_argument("--pin", action="append", default=[],
+                    help="tenant pin rule tenant=slot (repeatable)")
+    pf.add_argument("--ab", action="append", default=[],
+                    help="A/B split rule slot=weight (repeatable; weights "
+                         "normalized; assignment keyed by a deterministic "
+                         "request-id hash)")
+    pf.add_argument("--http", type=int, default=0,
+                    help="serve a localhost HTTP listener on this port "
+                         "instead of JSONL over stdin")
+    pf.add_argument("--selftest", type=int, default=0,
+                    help="run the per-slot + mixed-batch parity sweep "
+                         "with N queries per slot, then swap one slot "
+                         "out and back under live traffic with a capture "
+                         "watcher, and exit (nonzero on drift or any "
+                         "capture)")
+    pf.add_argument("--pods-per-query", type=int, default=3,
+                    help="query size for --selftest (default 3)")
+    pf.add_argument("--audit-tol", type=float, default=1e-5,
+                    help="selftest score drift tolerance")
+    pf.set_defaults(fn=cmd_portfolio)
     return ap
 
 

@@ -27,9 +27,13 @@ CUDA graph capture (``torch.cuda.graph``) fails if another thread touches
 the card meanwhile. On the CPU the transpiled tier fans out over a thread
 pool as in fks_tpu. Result order is the input order either way.
 
-``mesh=`` (a sharded batched tier) waits for the port of
-``parallel/mesh.py`` (ROADMAP queue 1 item 3); the footprint ledger of
-fks_tpu's batched tier waits for ``obs/memory.py`` (item 6).
+With ``mesh=`` (a ``parallel.mesh.Mesh`` of more than one shard) the
+batched tier shards a generation over the mesh
+(``parallel.mesh.make_sharded_code_eval``): each shard interprets its
+chunk of the stacked programs; a failure there raises instead of falling
+back to candidate-by-candidate scoring on one device. The footprint
+ledger of fks_tpu's batched tier waits for ``obs/memory.py`` (ROADMAP
+queue 1 item 6).
 """
 from __future__ import annotations
 
@@ -49,11 +53,6 @@ from fks_tpu_torch.funsearch import transpiler, vm
 from fks_tpu_torch.sim.engine import SimConfig
 from fks_tpu_torch.sim.types import SimResult, map_tensors
 from fks_tpu_torch.utils.segments import validate_seg_steps
-
-UNPORTED_MESH = ("mesh= (the sharded code tier, fks_tpu.parallel.mesh) is "
-                 "not ported yet: it waits for the mesh slice (ROADMAP "
-                 "queue 1 item 3); run on one device")
-
 
 @dataclasses.dataclass
 class EvalRecord:
@@ -102,11 +101,20 @@ class CodeEvaluator:
                  mesh=None, suite=None, robust=None, budget=None,
                  preflight: bool = True, fp_dedup: bool = True,
                  profiler=None, device=None):
+        from fks_tpu_torch.parallel.mesh import (
+            Mesh, lead_device, num_shards,
+        )
         from fks_tpu_torch.sim import get_engine
 
-        if mesh is not None:
-            raise ValueError(UNPORTED_MESH)
-        self.device = resolve_device(device)
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a parallel.mesh.Mesh, got "
+                            f"{type(mesh).__name__}")
+        # the sharded batched tier: each shard interprets its chunk of a
+        # stacked generation; the workload lives on the mesh's lead device
+        self.mesh = mesh
+        self._n_shards = num_shards(mesh) if mesh is not None else 1
+        self.device = (lead_device(mesh) if mesh is not None
+                       else resolve_device(device))
         self.workload = workload.to(self.device)
         self.profiler = (profiler if profiler is not None
                          else obs.NULL_PROFILER)
@@ -144,6 +152,7 @@ class CodeEvaluator:
         self.use_vm = use_vm
         self._vm_run = None  # lazily built one-candidate VM runner
         self._vm_pop_run = None  # lazily built population VM runner
+        self._vm_mesh_run = None  # lazily built sharded VM runner
         self._budget_eval = None  # lazily built rung ladder (budget mode)
         self.vm_batch_count = 0  # batched VM launches
         # batched launches that raised, their candidates then scored one
@@ -157,7 +166,8 @@ class CodeEvaluator:
         # enabled budget batches everywhere: its rung ladder is a batched
         # construct, and the pruning pays for the fan-out.
         if vm_batch is None:
-            vm_batch = self.device.type == "cuda" or self.budget is not None
+            vm_batch = (self.device.type == "cuda" or self._n_shards > 1
+                        or self.budget is not None)
         self.vm_batch = vm_batch
         # bounded device-call length for the batched tier (flat engine
         # only); 0 (the default) runs each launch to its end
@@ -248,18 +258,41 @@ class CodeEvaluator:
                     self.workload, vm.score_static, self.cfg)
         return self._vm_pop_run
 
+    def _vm_mesh_runner(self):
+        if self._vm_mesh_run is None:
+            from fks_tpu_torch.parallel.mesh import make_sharded_code_eval
+            self._vm_mesh_run = make_sharded_code_eval(
+                self.workload, self.mesh, cfg=self.cfg, elite_k=1,
+                engine=self.engine, seg_steps=self.vm_seg_steps,
+                on_segment=self._count_segment)
+        return self._vm_mesh_run
+
+    def _sharded(self) -> bool:
+        """Whether the batched tier shards over the mesh: a mesh of more
+        than one shard, outside suite mode (the sharded code eval has no
+        scenario axis; fks_tpu shards suites at the parametric tier)."""
+        return self._n_shards > 1 and self.suite is None
+
     def _run_vm_batch(self, progs: List[vm.VMProgram]) -> List[SimResult]:
-        """Evaluate stacked VM candidates in ONE launch. The capacity is
-        the stack's power-of-two bucket and the lane count the next power
-        of two, padded by repeating the last program, so a captured graph
-        is reused per bucket, never rebuilt per generation. One copy to
-        the host per launch; the ``vm_batch`` span closes after it."""
-        pop = vm.bucket_lanes(len(progs))
+        """Evaluate stacked VM candidates in ONE launch, sharded over the
+        mesh when one of several shards was passed. The capacity is the
+        stack's power-of-two bucket and the lane count the next power of
+        two rounded up to the shard count, padded by repeating the last
+        program, so a captured graph is reused per bucket, never rebuilt
+        per generation. One copy to the host per launch; the ``vm_batch``
+        span closes after it."""
+        pop = vm.bucket_lanes(len(progs), self._n_shards)
         padded = list(progs) + [progs[-1]] * (pop - len(progs))
         stacked = self._to_device(vm.stack_programs(padded))
         with obs.span("vm_batch", candidates=len(progs), lanes=pop,
-                      shards=1):
-            result = _host(self._vm_pop_runner()(stacked, self.state0))
+                      shards=self._n_shards):
+            if self._sharded():
+                # each shard interprets pop/shards lanes; the elites are
+                # dropped here (the evolution loop ranks on the host)
+                result, _, _ = self._vm_mesh_runner()(stacked, len(progs))
+            else:
+                result = self._vm_pop_runner()(stacked, self.state0)
+            result = _host(result)
         with self._lock:
             self.vm_batch_count += 1
             self.vm_count += len(progs)
@@ -277,7 +310,7 @@ class CodeEvaluator:
                 self.workload, self.cfg, self.budget, self.robust,
                 full_runner=lambda stacked: self._vm_pop_runner()(
                     stacked, self.state0),
-                engine=self.engine, n_shards=1,
+                engine=self.engine, n_shards=self._n_shards,
                 segment_counter=lambda: self.segments_dispatched,
                 device=self.device)
         return self._budget_eval
@@ -538,7 +571,10 @@ class CodeEvaluator:
                     batch_served = len(vm_keys)
                 except Exception as e:  # noqa: BLE001 — batch failed:
                     # score them one by one, and say why the one-launch
-                    # path is not engaging (``vm_batch_fallbacks``)
+                    # path is not engaging (``vm_batch_fallbacks``); a
+                    # sharded batch never falls back to one device
+                    if self._sharded():
+                        raise
                     from fks_tpu_torch.utils.logging import get_logger
                     get_logger("fks_tpu_torch.funsearch.backend").warning(
                         "batched VM launch failed (%s: %s); falling back "
@@ -569,7 +605,7 @@ class CodeEvaluator:
                     occupancy_stats,
                 )
                 hd.annotate(lanes=batch_served, **occupancy_stats(
-                    batch_served, 1,
+                    batch_served, self._n_shards,
                     scenarios=len(self.suite) if self.suite else 1,
                     segments=max(1, self.segments_dispatched - seg0)))
             else:

@@ -1,23 +1,27 @@
-"""Device-resident parametric evolution on one device.
+"""Device-resident parametric evolution over a mesh.
 
-Port of fks_tpu.funsearch.device_evolution.ParametricEvolution. Its
-generation step is the single-device form of fks_tpu's
-``make_sharded_generation_step`` (parallel/mesh.py:477-525): evaluate the
-population, take the top-k elites (pad slots masked, ``_top_k_real``),
-keep the elites in the leading slots and mutate the rest from a random
-elite. The weights stay on the device; only the per-generation scores
-reach the host, for logging. ``save_checkpoint``/``restore_checkpoint``
-keep fks_tpu's ``.npz`` field names; ``key`` holds the state of the
-instance's ``torch.Generator`` (uint8), so a restored run continues bit
-for bit as the uninterrupted one would. An fks_tpu checkpoint crosses
+Port of fks_tpu.funsearch.device_evolution.ParametricEvolution. Each
+generation is ``parallel.mesh.make_sharded_generation_step``: evaluate the
+population shard by shard, gather the scores, take the top-k elites (pad
+slots masked), keep the elites in the leading slots and mutate the rest
+from a random elite. Without a mesh the population runs on a one-shard
+``population_mesh`` over the resolved device, as fks_tpu builds one over
+its devices. The weights stay on the lead device; only the
+per-generation scores reach the host, for logging.
+``save_checkpoint``/``restore_checkpoint`` keep fks_tpu's ``.npz`` field
+names; ``key`` holds the state of the instance's ``torch.Generator``
+(uint8), which draws each generation's seed, so a restored run continues
+bit for bit as the uninterrupted one would. An fks_tpu checkpoint crosses
 over through ``convert.device_evolution_state_from_npz`` (its JAX PRNG key
-does not). The mesh waits for the port of ``parallel/mesh.py`` (ROADMAP
-queue 1 item 3).
+does not).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable, List, Optional
+
+__all__ = ["DeviceGenStats", "ParametricEvolution", "next_generation",
+           "top_k_real"]
 
 import numpy as np
 import torch
@@ -25,7 +29,11 @@ import torch
 from fks_tpu_torch.data.entities import Workload
 from fks_tpu_torch.device import resolve_device
 from fks_tpu_torch.models import parametric
-from fks_tpu_torch.parallel.population import make_population_eval
+from fks_tpu_torch.parallel.mesh import (
+    Mesh, lead_device, make_sharded_generation_step, next_generation,
+    population_mesh, top_k_real,
+)
+from fks_tpu_torch.parallel.population import pad_population
 from fks_tpu_torch.sim.engine import SimConfig
 
 
@@ -36,76 +44,48 @@ class DeviceGenStats:
     mean_score: float
 
 
-def top_k_real(scores: torch.Tensor, real_count: int, k: int):
-    """(elite_scores[k], elite_idx[k]): the k best of the first
-    ``real_count`` slots, ties to the lower index (``lax.top_k``'s order;
-    a stable descending sort guarantees it, ``torch.topk`` does not). When
-    ``real_count < k`` the trailing slots repeat the best real candidate
-    instead of a pad slot (mesh.py:364-373)."""
-    iota = torch.arange(scores.shape[0], device=scores.device)
-    masked = torch.where(iota < real_count, scores,
-                         torch.full_like(scores, -torch.inf))
-    order = torch.sort(masked, descending=True, stable=True)
-    elite_scores, elite_idx = order.values[:k], order.indices[:k]
-    valid = torch.isfinite(elite_scores)
-    return (torch.where(valid, elite_scores, elite_scores[0]),
-            torch.where(valid, elite_idx, elite_idx[0]))
-
-
-def next_generation(params: torch.Tensor, scores: torch.Tensor,
-                    elite_k: int,
-                    offspring: Callable[[torch.Tensor], torch.Tensor],
-                    real_count: Optional[int] = None):
-    """Elites survive in the leading slots; every other slot takes the
-    offspring ``offspring(elites)`` made for it. Returns (new_params,
-    elite_scores)."""
-    pop = params.shape[0]
-    real = pop if real_count is None else real_count
-    elite_scores, elite_idx = top_k_real(scores, real, elite_k)
-    elites = params[elite_idx]
-    slot = torch.arange(pop, device=params.device)
-    survivors = elites[slot.clamp(max=elite_k - 1)]
-    new = torch.where((slot < elite_k)[:, None], survivors, offspring(elites))
-    return new, elite_scores
-
-
 class ParametricEvolution:
-    """Weight-space evolution whose population stays on one device."""
+    """Weight-space evolution whose population stays on the device(s).
+
+    ``mesh`` (a ``parallel.mesh.Mesh``) shards the population; the
+    population is padded to a multiple of its shard count and the pad
+    lanes never become elites or parents. ``device`` places the default
+    one-shard mesh; with a mesh the weights live on its lead device."""
 
     def __init__(self, workload: Workload, pop_size: int = 64,
                  elite_k: int = 4, noise: float = 0.05,
                  cfg: SimConfig = SimConfig(), engine: str = "exact",
                  seed: int = 0, init_noise: float = 0.1, device=None,
                  mesh=None):
-        if mesh is not None:
-            raise ValueError(
-                "mesh= (a population sharded over devices) is not ported "
-                "yet: it waits for the mesh slice (ROADMAP queue 1 item "
-                "3); run on one device")
-        self.device = resolve_device(device)
-        self.eval = make_population_eval(workload, cfg=cfg, engine=engine,
-                                         device=self.device)
+        if mesh is None:
+            mesh = population_mesh([resolve_device(device)])
+        elif not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a parallel.mesh.Mesh, got "
+                            f"{type(mesh).__name__}")
+        self.mesh = mesh
+        self.device = lead_device(mesh)
+        self._step = make_sharded_generation_step(
+            workload, mesh, cfg=cfg, elite_k=elite_k, noise=noise,
+            engine=engine)
+        self.eval = self._step.results
         self.elite_k = elite_k
         self.noise = noise
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
-        self.params = parametric.init_population(self.generator, pop_size,
-                                                 noise=init_noise)
-        self.real_count = pop_size
+        self.params, self.real_count = pad_population(
+            parametric.init_population(self.generator, pop_size,
+                                       noise=init_noise), mesh)
         self.generation = 0
         self.history: List[DeviceGenStats] = []
         self.best_score = float("-inf")
         self._best_params = None
 
     def step(self):
-        """One generation: (new_params, scores, elite_scores)."""
-        scores = self.eval(self.params).policy_score
-        new, elite_scores = next_generation(
-            self.params, scores, self.elite_k,
-            lambda elites: parametric.mutate(
-                self.generator, elites, self.params.shape[0], self.noise),
-            self.real_count)
-        return new, scores, elite_scores
+        """One generation: (new_params, scores, elite_scores). The step's
+        seed comes from the instance's generator."""
+        seed = int(torch.randint(0, 2 ** 62, (1,), generator=self.generator,
+                                 device=self.device))
+        return self._step(self.params, seed, self.real_count)
 
     def run(self, generations: int,
             on_generation: Optional[Callable[[DeviceGenStats], None]] = None,

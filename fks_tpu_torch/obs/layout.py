@@ -1,14 +1,25 @@
-"""Layout observability: the eval-time layout ledger rows.
+"""Layout observability: declared layouts and the layout ledger rows.
 
-Port of ``record_layout`` from fks_tpu.obs.layout, for the canonical key
-strings the serve engines file (fks_tpu/serve/artifact.py:713-719): one
-``layout_ledger`` row per served batch, deduplicated against the last
-identical row, with the batch's lane occupancy. ``LayoutSpec``, the
-rollup and the layout explorer wait for the mesh (ROADMAP queue 1 items
-3 and 6).
+Port of the spec and ledger part of fks_tpu.obs.layout
+(fks_tpu/obs/layout.py:69-165, :237-277):
+
+- ``LayoutSpec``: which of the batchable axes (candidates, scenarios,
+  segments) shard over the mesh, which stay batched inside a shard, and
+  the host-loop segment size; ``default_spec`` is the layout every entry
+  point runs unless told otherwise, ``parse_layout_key`` inverts
+  ``LayoutSpec.key``, ``tag_layout`` marks a callable with its key;
+- ``record_layout``: one ``layout_ledger`` row per wiring or launch,
+  deduplicated against the last identical row; with a mesh and a real
+  count it folds the mesh's pad and occupancy accounting in
+  (``parallel.mesh.occupancy_stats``).
+
+fks_tpu's ``cost_stats_of`` prices a compiled XLA program; a captured
+CUDA graph publishes no such analysis, so the rows carry no cost bytes.
+The rollup and the layout explorer wait for ROADMAP queue 1 item 6.
 """
 from __future__ import annotations
 
+import dataclasses
 import re
 import threading
 from typing import Any, Dict, List, Optional, Tuple
@@ -23,28 +34,100 @@ LAYOUT_COMPONENTS = ("eval", "code_eval", "gen_step", "suite_eval",
                      "serve", "vm_serve", "portfolio_serve", "probe",
                      "bench")
 
-#: the layout every single-device serve batch runs: candidates (the
-#: coalesced queries) on the lane axis, no segments
-DEFAULT_LAYOUT_KEY = "shard[candidates]|vmap[candidates]|seg=0"
-
 _KEY_RE = re.compile(
     r"^shard\[(?P<shard>[a-z_,]*)\]\|vmap\[(?P<vmap>[a-z_,]*)\]"
     r"\|seg=(?P<seg>\d+)$")
 
 
-def parse_layout_key(key: str) -> Tuple[Tuple[str, ...], Tuple[str, ...],
-                                        int]:
-    """``(shard, vmap, seg_steps)`` of a canonical layout key; raises
-    ValueError on malformed or out-of-vocabulary keys."""
+@dataclasses.dataclass(frozen=True)
+class LayoutSpec:
+    """Declarative layout: which axes shard over the mesh, which stay
+    batched (fks_tpu's "vmap") inside each shard, and the host-loop
+    segment size. Validated at construction, by fks_tpu's rules: axes
+    come from ``LAYOUT_AXES``; ``candidates`` always shards; a sharded
+    axis stays batched inside its shard; ``segments`` is the segmented
+    runner's host loop, carried only as ``seg_steps``."""
+
+    shard: Tuple[str, ...] = ("candidates",)
+    vmap: Tuple[str, ...] = ("candidates",)
+    seg_steps: int = 0
+
+    def __post_init__(self):
+        for field, axes in (("shard", self.shard), ("vmap", self.vmap)):
+            if not isinstance(axes, tuple):
+                object.__setattr__(self, field, tuple(axes))
+                axes = getattr(self, field)
+            for a in axes:
+                if a not in LAYOUT_AXES:
+                    raise ValueError(
+                        f"unknown layout axis {a!r} in {field}; choose "
+                        f"from {LAYOUT_AXES}")
+            if len(set(axes)) != len(axes):
+                raise ValueError(f"duplicate axes in {field}: {axes}")
+            if "segments" in axes:
+                raise ValueError(
+                    "'segments' is the segmented runner's host loop — it "
+                    f"cannot {field}; express it via seg_steps")
+        if "candidates" not in self.shard:
+            raise ValueError("'candidates' must shard (it is the only "
+                             "always-parallel axis)")
+        missing = set(self.shard) - set(self.vmap)
+        if missing:
+            raise ValueError(
+                f"sharded axes must stay locally vmapped inside their "
+                f"shard; {sorted(missing)} missing from vmap")
+        if self.seg_steps < 0:
+            raise ValueError(f"seg_steps {self.seg_steps} < 0")
+
+    @property
+    def key(self) -> str:
+        """Canonical key (round-trips through ``parse_layout_key``); axis
+        order is canonicalized to ``LAYOUT_AXES`` order."""
+        shard = ",".join(a for a in LAYOUT_AXES if a in self.shard)
+        vmap = ",".join(a for a in LAYOUT_AXES if a in self.vmap)
+        return f"shard[{shard}]|vmap[{vmap}]|seg={self.seg_steps}"
+
+    def describe(self) -> dict:
+        return {"layout_key": self.key, "shard": list(self.shard),
+                "vmap": list(self.vmap), "seg_steps": self.seg_steps}
+
+
+def default_spec(*, scenarios: bool = False, seg_steps: int = 0
+                 ) -> LayoutSpec:
+    """The layout the entry points run by default: candidates shard over
+    the mesh's population axes, everything batchable stays batched inside
+    the shard, segments stay a host loop. ``scenarios=True`` is the suite
+    entry point's default (candidates x scenarios lanes)."""
+    vmap = ("candidates", "scenarios") if scenarios else ("candidates",)
+    return LayoutSpec(shard=("candidates",), vmap=vmap,
+                      seg_steps=int(seg_steps))
+
+
+#: the layout every serve batch runs: candidates (the coalesced queries)
+#: on the lane axis, no segments
+DEFAULT_LAYOUT_KEY = default_spec().key
+
+
+def parse_layout_key(key: str) -> LayoutSpec:
+    """Inverse of ``LayoutSpec.key``; raises ValueError on malformed or
+    out-of-vocabulary keys."""
     m = _KEY_RE.match(key)
     if not m:
         raise ValueError(f"malformed layout key {key!r}")
     split = lambda s: tuple(a for a in s.split(",") if a)  # noqa: E731
-    shard, vmap = split(m.group("shard")), split(m.group("vmap"))
-    for a in shard + vmap:
-        if a not in LAYOUT_AXES:
-            raise ValueError(f"unknown layout axis {a!r} in {key!r}")
-    return shard, vmap, int(m.group("seg"))
+    return LayoutSpec(shard=split(m.group("shard")),
+                      vmap=split(m.group("vmap")),
+                      seg_steps=int(m.group("seg")))
+
+
+def tag_layout(fn, layout_key: str):
+    """Tag a callable with its layout key (``_fks_layout_key``, fks_tpu's
+    attribute); callables that refuse attributes stay untagged."""
+    try:
+        fn._fks_layout_key = layout_key
+    except (AttributeError, TypeError):
+        pass
+    return fn
 
 
 class LayoutLedger:
@@ -84,34 +167,42 @@ class LayoutLedger:
 LEDGER = LayoutLedger()
 
 
-def record_layout(component: str, key: str, *, mesh=None,
+def record_layout(component: str, spec, *, mesh=None,
                   workload_key: str = "", real_count: Optional[int] = None,
                   scenarios: int = 1, segments: int = 1, recorder=None,
                   **fields) -> Optional[dict]:
     """File one ``layout_ledger`` row in the process ledger and on the
     recorder (fks_tpu's fields: component, canonical layout key, mesh
     layout, workload key, sharded axes, segment steps, the real count,
-    plus the caller's occupancy fields). ``scenarios`` and ``segments``
-    scale a mesh's occupancy in fks_tpu, so without a mesh they file
-    nothing, as there. Returns the row, or None when it deduped away."""
+    plus the caller's occupancy fields). ``spec`` is a ``LayoutSpec`` or
+    a canonical key. With ``real_count`` and a mesh the pad and occupancy
+    stats over the mesh's candidate shards are folded in (the eval-time
+    path: call it per launch, identical repeats dedupe). Returns the row,
+    or None when it deduped away."""
     if component not in LAYOUT_COMPONENTS:
         raise ValueError(f"unknown layout component {component!r}; "
                          f"choose from {LAYOUT_COMPONENTS}")
+    if isinstance(spec, str):
+        spec = parse_layout_key(spec)
     from fks_tpu_torch.obs.memory import mesh_layout_label
 
-    shard, vmap, seg = parse_layout_key(key)
-    order = lambda axes: ",".join(a for a in LAYOUT_AXES if a in axes)  # noqa: E731
-    canon = f"shard[{order(shard)}]|vmap[{order(vmap)}]|seg={seg}"
     rec: Dict[str, Any] = {
         "component": component,
-        "layout_key": canon,
+        "layout_key": spec.key,
         "mesh_layout": mesh_layout_label(mesh),
         "workload_key": workload_key,
-        "axes": [a for a in LAYOUT_AXES if a in shard],
-        "seg_steps": seg,
+        "axes": [a for a in LAYOUT_AXES if a in spec.shard],
+        "seg_steps": spec.seg_steps,
     }
     if real_count is not None:
         rec["real_count"] = int(real_count)
+        if mesh is not None:
+            from fks_tpu_torch.parallel.mesh import (
+                num_shards, occupancy_stats,
+            )
+            rec.update(occupancy_stats(int(real_count), num_shards(mesh),
+                                       scenarios=scenarios,
+                                       segments=segments))
     rec.update(fields)
     if not LEDGER.add(rec):
         return None

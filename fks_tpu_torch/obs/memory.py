@@ -58,12 +58,12 @@ def capture_footprint(device, argument_bytes: int = 0
 
 
 def mesh_layout_label(mesh: Any) -> str:
-    """A mesh's layout as a comparison key; empty without a mesh (the
-    mesh waits for ROADMAP queue 1 item 3)."""
-    if mesh is not None:
-        raise ValueError("meshes are not ported yet (ROADMAP queue 1 "
-                         "item 3)")
-    return ""
+    """A mesh's layout as a stable comparison key, ``"pop=4,scn=2"`` from
+    its axis shape (``parallel.mesh.Mesh.shape``); empty without a mesh
+    (fks_tpu/obs/memory.py:102-112)."""
+    if mesh is None:
+        return ""
+    return ",".join(f"{k}={int(v)}" for k, v in mesh.shape.items())
 
 
 class FootprintLedger:

@@ -17,7 +17,10 @@ after. So the counterpart counts captures:
   reads as zero captures.
 - ``device_snapshot``/``record_devices``: per-device identity plus the
   caching allocator's counters (``torch.cuda.memory_stats``), None on
-  the CPU. ``mesh_snapshot`` waits for the mesh (ROADMAP queue 1 item 3).
+  the CPU;
+- ``mesh_snapshot``/``record_mesh``: a ``parallel.mesh.Mesh``'s axes,
+  shape, device and shard counts, and the pad-lane waste of a padded
+  population.
 """
 from __future__ import annotations
 
@@ -179,4 +182,33 @@ def record_devices(recorder=None) -> List[Dict[str, Any]]:
     snap = device_snapshot() if rec.enabled else []
     for d in snap:
         rec.event("device", **d)
+    return snap
+
+
+def mesh_snapshot(mesh, real_count: Optional[int] = None) -> Dict[str, Any]:
+    """Mesh metadata: axes, shape, device count and shard count, plus the
+    pad-lane accounting (``parallel.mesh.pad_stats``) when the caller's
+    real candidate count is known (fks_tpu/obs/telemetry.py:193-209). A
+    logical shard counts as a device: ``devices`` is the mesh's size."""
+    from fks_tpu_torch.parallel.mesh import num_shards, pad_stats
+
+    info: Dict[str, Any] = {
+        "axis_names": list(mesh.axis_names),
+        "shape": {str(k): int(v) for k, v in mesh.shape.items()},
+        "devices": int(mesh.devices.size),
+        "shards": num_shards(mesh),
+    }
+    if real_count is not None:
+        info.update(pad_stats(real_count, mesh))
+    return info
+
+
+def record_mesh(mesh, real_count: Optional[int] = None,
+                recorder=None) -> Dict[str, Any]:
+    """Write one ``kind="mesh"`` event describing the mesh."""
+    rec = recorder if recorder is not None else get_recorder()
+    if not rec.enabled:
+        return {}
+    snap = mesh_snapshot(mesh, real_count)
+    rec.event("mesh", **snap)
     return snap

@@ -4,8 +4,9 @@ Port of fks_tpu.parallel.population. The population is ``params[P, 16]``;
 the exact and flat engines run it as P lanes of one batched step (on the
 card, replayed as a CUDA graph for the exact engine), the fused engine as
 one kernel launch with one warp per candidate. ``pad_population`` and the
-occupancy counters are the mesh-free helpers of fks_tpu.parallel.mesh
-that the budget rungs use.
+pad and occupancy counters (fks_tpu.parallel.mesh's) live here so the
+budget rungs and the serve engines need not import the mesh; each takes
+a shard count or a ``parallel.mesh.Mesh``.
 """
 from __future__ import annotations
 
@@ -70,14 +71,24 @@ def fitness(result: SimResult) -> torch.Tensor:
     return result.policy_score
 
 
-def pad_population(params, num_shards: int):
-    """Pad the candidate axis up to a multiple of ``num_shards``: every
-    tensor of ``params`` (a weight matrix ``[C, F]`` or a stacked
-    ``vm.VMProgram``) repeats its last candidate's slice. Returns
-    ``(padded, real_count)``; pass ``real_count`` on so the pad slots
-    (duplicates of the last candidate) are masked out of elite selection.
-    Mesh-free part of fks_tpu.parallel.mesh.pad_population: the mesh
-    itself waits for ROADMAP queue 1 item 3."""
+def _shard_count(num_shards) -> int:
+    """A shard count given as an int or as a ``parallel.mesh.Mesh``."""
+    if hasattr(num_shards, "axis_names"):
+        from fks_tpu_torch.parallel.mesh import num_shards as count
+
+        return count(num_shards)
+    return int(num_shards)
+
+
+def pad_population(params, num_shards):
+    """Pad the candidate axis up to a multiple of ``num_shards`` (a count
+    or a mesh): every tensor of ``params`` (a weight matrix ``[C, F]`` or
+    a stacked ``vm.VMProgram``) repeats its last candidate's slice.
+    Returns ``(padded, real_count)``; pass ``real_count`` on so the pad
+    slots (duplicates of the last candidate) are masked out of elite
+    selection (fks_tpu.parallel.mesh.pad_population)."""
+    num_shards = _shard_count(num_shards)
+    params = as_params(params)
     c = batch_size(params)
     target = -(-c // num_shards) * num_shards
     if target != c:
@@ -87,10 +98,12 @@ def pad_population(params, num_shards: int):
     return params, c
 
 
-def pad_stats(real_count: int, num_shards: int) -> dict:
-    """Pad-lane accounting for a ``pad_population`` launch: how many of
-    the launched lanes repeat the last candidate instead of doing real
-    work (fks_tpu.parallel.mesh.pad_stats)."""
+def pad_stats(real_count: int, num_shards) -> dict:
+    """Pad-lane accounting for a ``pad_population`` launch over
+    ``num_shards`` (a count or a mesh): how many of the launched lanes
+    repeat the last candidate instead of doing real work
+    (fks_tpu.parallel.mesh.pad_stats)."""
+    num_shards = _shard_count(num_shards)
     real = int(real_count)
     padded = -(-real // num_shards) * num_shards if real else 0
     return {
@@ -101,7 +114,7 @@ def pad_stats(real_count: int, num_shards: int) -> dict:
     }
 
 
-def occupancy_stats(real_count: int, num_shards: int, scenarios: int = 1,
+def occupancy_stats(real_count: int, num_shards, scenarios: int = 1,
                     segments: int = 1) -> dict:
     """``pad_stats`` extended with the other two batch axes a launch
     multiplies over, scenarios and trace segments:

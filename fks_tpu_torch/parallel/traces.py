@@ -26,8 +26,8 @@ from fks_tpu_torch.device import resolve_device
 from fks_tpu_torch.models import parametric
 from fks_tpu_torch.sim import get_engine
 from fks_tpu_torch.sim.engine import (
-    GraphedChunk, SimConfig, bind_step, copy_state_, graph_key,
-    run_batched_lanes, stack_states, tile_state, zip_tensors,
+    GraphedChunk, LaneJob, SimConfig, bind_step, copy_state_, drain,
+    graph_key, stack_states, tile_state, zip_tensors,
 )
 from fks_tpu_torch.sim.evaluator import (
     max_snapshot_count, snapshot_trigger_table,
@@ -116,9 +116,24 @@ def make_trace_batch_eval(workloads: Sequence[Workload],
     axis; results are [C, T], every candidate on every trace in one run.
     ``engine`` is "exact" or "flat"."""
     dev = resolve_device(device)
+    stacked = stack_traces([w.to(dev) for w in workloads], cfg, engine)
+    return stacked_trace_eval(stacked, param_policy, cfg, population,
+                              engine)
+
+
+def stacked_trace_eval(stacked, param_policy=parametric.score,
+                       cfg: SimConfig = SimConfig(),
+                       population: bool = False, engine: str = "exact"):
+    """``make_trace_batch_eval`` over an already stacked batch (a
+    ``stack_traces`` tuple, or a slice of one along the trace axis, on
+    the device it runs on). Every call makes a runner with graphs of its
+    own, so runners over one stack never replay each other's graphs.
+    ``eval.start(params)`` sets the lanes up as a ``sim.engine.LaneJob``
+    and ``eval.finish(job)`` finalizes them (``parallel.mesh`` drains
+    several together); ``eval`` is the two with ``drain`` between."""
     mod = get_engine(engine)
-    wl, kt, state0, max_steps = stack_traces(
-        [w.to(dev) for w in workloads], cfg, engine)
+    wl, kt, state0, max_steps = stacked
+    dev = kt.device
     traces = int(kt.shape[0])
     graphs = {}
 
@@ -126,7 +141,7 @@ def make_trace_batch_eval(workloads: Sequence[Workload],
         return bind_step(mod.build_step, wl, param_policy, params, cfg, kt,
                          max_steps, lane_trace=lane_trace)
 
-    def eval_fn(params) -> SimResult:
+    def start(params) -> LaneJob:
         if params is not None:
             params = map_tensors(lambda x: x.to(dev), as_params(params))
         cands = batch_size(params) if population else 1
@@ -137,9 +152,8 @@ def make_trace_batch_eval(workloads: Sequence[Workload],
                 lambda x: x.repeat_interleave(traces, dim=0), params)
         state = tile_state(state0, cands)
         if dev.type != "cuda":
-            final = run_batched_lanes(build(params, lane_trace), state,
-                                      max_steps, active_fn=mod.lane_active)
-            res = mod.finalize(wl, cfg, final, lane_trace=lane_trace)
+            job = LaneJob(build(params, lane_trace), state, max_steps,
+                          mod.lane_active)
         else:
             key = graph_key(cands, params)
             chunk = graphs.get(key)
@@ -152,9 +166,23 @@ def make_trace_batch_eval(workloads: Sequence[Workload],
                 if params is not None:
                     copy_tensors_(chunk.step.params, params)
                 copy_state_(chunk.state, state)
-            res = map_tensors(torch.clone, mod.finalize(
-                wl, cfg, chunk.run(), lane_trace=lane_trace))
-        return _per_lane(res, cands, traces) if population else res
+            job = LaneJob(chunk.step, chunk.state, max_steps,
+                          mod.lane_active, chunk)
+        job.lane_trace, job.cands = lane_trace, cands
+        return job
+
+    def finish(job: LaneJob) -> SimResult:
+        res = mod.finalize(wl, cfg, job.state, lane_trace=job.lane_trace)
+        if job.chunk is not None:
+            res = map_tensors(torch.clone, res)
+        return _per_lane(res, job.cands, traces) if population else res
+
+    def eval_fn(params) -> SimResult:
+        job = start(params)
+        drain([job])
+        return finish(job)
 
     eval_fn.graphs = graphs  # captured CUDA graphs, by engine.graph_key
+    eval_fn.start = start
+    eval_fn.finish = finish
     return eval_fn

@@ -9,9 +9,9 @@ Port of fks_tpu.scenarios:
   variants) materialized as same-shape workloads;
 - ``robust``: one batched evaluation of a candidate, or a population, over
   a whole suite, and the fold of its per-scenario scores into a robust
-  score (weighted mean, min, CVaR-alpha).
-
-The mesh-sharded suite eval waits for the port of ``parallel/mesh.py``.
+  score (weighted mean, min, CVaR-alpha); ``make_sharded_suite_eval``
+  shards the candidates (and, on a ``layout_mesh``, the scenarios) over a
+  device mesh and ranks elites on the robust score.
 """
 from fks_tpu_torch.scenarios.generator import (
     ScenarioSpec, fault_events_for, make_fault_events, perturb_workload,

@@ -12,8 +12,9 @@ Port of fks_tpu.serve:
 - service: request/metrics layer, JSONL + localhost HTTP fronts,
   selftest.
 
-Mesh-sharded serving and ``portfolio/`` wait for the mesh (ROADMAP queue
-1 item 3).
+Every engine takes ``mesh=`` (``parallel.mesh.Mesh``) to shard its lane
+axis; ``fks_tpu_torch.portfolio`` serves several champions from one set of
+graphs.
 """
 from fks_tpu_torch.serve.artifact import (
     ChampionSpec, ServeEngine, ShapeEnvelope, enable_persistent_cache,

@@ -21,7 +21,11 @@ engine that captures nothing on its warm path:
   graph; the pod tables, the snapshot table and the state are its static
   input buffers, which every batch overwrites in place (the counterpart
   of fks_tpu's donated arguments: steady state allocates nothing per
-  batch). On the CPU the same buffers drive the step eagerly.
+  batch). On the CPU the same buffers drive the step eagerly. With a
+  ``mesh`` (``parallel.mesh.Mesh``) lane buckets are per shard: a batch
+  of ``lane bucket x shards`` lanes splits into equal shard slices, each
+  run by its shard's own graph on its shard's device, all launched
+  before any is read (``parallel.mesh.make_sharded_serve_fn``).
 
 ``enable_persistent_cache`` has no counterpart: PyTorch keeps no cache of
 captured graphs across processes, so a loaded artifact captures its
@@ -49,7 +53,13 @@ from fks_tpu_torch import obs
 from fks_tpu_torch.data.entities import ClusterArrays, PodArrays, Workload
 from fks_tpu_torch.device import resolve_device
 from fks_tpu_torch.obs.layout import DEFAULT_LAYOUT_KEY, record_layout
-from fks_tpu_torch.obs.memory import capture_footprint, record_footprint
+from fks_tpu_torch.obs.memory import (
+    FOOTPRINT_KEYS, capture_footprint, record_footprint,
+)
+from fks_tpu_torch.parallel.mesh import (
+    _check_mesh, make_sharded_serve_fn, num_shards, serve_lane_count,
+    serve_sharding,
+)
 from fks_tpu_torch.parallel.population import occupancy_stats
 from fks_tpu_torch.serve.batcher import (
     PODARRAY_FIELDS, build_query_workload, pack_query_tables, pods_to_dicts,
@@ -58,12 +68,13 @@ from fks_tpu_torch.serve.batcher import (
 )
 from fks_tpu_torch.sim import get_engine
 from fks_tpu_torch.sim.engine import (
-    GraphedChunk, SimConfig, bind_step, copy_state_, graph_key,
-    resolve_auto_prefilter, run_batched_lanes, static_work_hint,
-    zip_tensors,
+    GraphedChunk, LaneJob, SimConfig, bind_step, copy_state_, drain,
+    graph_key, resolve_auto_prefilter, static_work_hint, zip_tensors,
 )
 from fks_tpu_torch.sim.evaluator import max_snapshot_count
-from fks_tpu_torch.sim.types import clone_tensors, map_tensors
+from fks_tpu_torch.sim.types import (
+    clone_tensors, copy_tensors_, map_tensors,
+)
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -71,12 +82,6 @@ REPO = os.path.dirname(os.path.dirname(os.path.dirname(
 CHAMPION_DIR = os.path.join(REPO, "policies", "discovered")
 
 ARTIFACT_VERSION = 1
-
-#: the message of every serving option that waits for the mesh
-UNPORTED_MESH = ("mesh-sharded serving needs parallel/mesh.py, which is not "
-                 "ported yet (ROADMAP queue 1 item 3, mesh then portfolio/); "
-                 "serve on one device with mesh=None")
-
 
 # ---------------------------------------------------------------- champions
 
@@ -304,19 +309,34 @@ def _pad_lanes(pods: PodArrays, state, lanes: int):
     return pods, state
 
 
+def _device_scope(device, streams):
+    """``device`` and its serving stream (``streams[device]``) for
+    whichever thread runs the work; nothing on the CPU."""
+    import contextlib
+
+    stack = contextlib.ExitStack()
+    if device.type == "cuda":
+        stack.enter_context(torch.cuda.device(device))
+        stack.enter_context(torch.cuda.stream(streams[device]))
+    return stack
+
+
 class _Graph:
-    """One (lanes, pod bucket) program of a serve engine: the buffers its
-    step reads and, on CUDA, the captured graph that replays the step.
+    """One (lanes, pod bucket) program of a serve engine (or of one shard
+    of a mesh-sharded engine) on ``device``: the buffers its step reads
+    and, on CUDA, the captured graph that replays the step.
 
     Static inputs, rewritten for every batch: ``pods`` (a PodArrays of
     ``[lanes, P]`` tensors, read by ``finalize``), ``rows`` (the step's
-    ``pod_table``), ``kt`` (the snapshot tables, ``[lanes, K]``) and the
-    graph's state. Constants: the stacked cluster and ``params``. Staging
-    buffers take the next batch's upload while this one replays."""
+    ``pod_table``), ``kt`` (the snapshot tables, ``[lanes, K]``), the
+    graph's state and, where the engine passes per-batch params (the
+    portfolio's lane slots), the params. Constants: the stacked cluster
+    and the rest of ``params``. Staging buffers take the next batch's
+    upload while this one replays."""
 
     def __init__(self, eng: "ServeEngine", lanes: int, bucket: int,
-                 params, example):
-        dev = eng.device
+                 params, example, device):
+        dev = self.device = device
         mod = eng._mod
         self.lanes, self.bucket = lanes, bucket
         self.cfg = cfg = eng.bucket_config(bucket)
@@ -324,7 +344,7 @@ class _Graph:
         self.plan = eng._pack_plan(bucket)
         self.mod = mod
         pods, kt, state0 = example
-        cluster = dataclasses.replace(eng.cluster, node_ids=())
+        cluster = dataclasses.replace(eng.cluster, node_ids=()).to(dev)
         self.pods = PodArrays(**{
             f: to_tensor(getattr(pods, f)).to(dev) for f in PODARRAY_FIELDS})
         self.pods, kt_t = unpack_query_tables(
@@ -336,12 +356,13 @@ class _Graph:
         self.kt = kt_t.clone()
         self.lane_trace = torch.arange(lanes, device=dev)
         self.params = params
-        self.step = bind_step(mod.build_step, self.wl, eng.param_policy,
+        self.step = bind_step(mod.build_step, self.wl, eng.graph_policy,
                               params, cfg, self.kt, self.max_steps,
                               lane_trace=self.lane_trace,
                               pod_rows=self.rows)
         self.state = map_tensors(lambda x: x.to(dev), state0)
         self.chunk: Optional[GraphedChunk] = None
+        self.job: Optional[LaneJob] = None
         self.footprint: Dict[str, int] = {}
         self.staging = None
         if dev.type == "cuda":
@@ -352,45 +373,100 @@ class _Graph:
                                           self.max_steps, mod.lane_active)
             self.footprint = fp
 
-    def stage(self, pods: PodArrays, kt, state) -> None:
-        """Upload a batch's packed host tables and state into the staging
-        buffers (``kt`` is a device tensor already); stream-ordered, so a
-        graph still replaying the previous batch reads its own inputs."""
-        up = lambda a: to_tensor(a).to(self.kt.device,  # noqa: E731
+    def stage(self, pods: PodArrays, kt, state, params=None) -> None:
+        """Upload a batch's packed host tables and state (and per-batch
+        params, device tensors already, like ``kt``) into the staging
+        buffers; stream-ordered, so a graph still replaying the previous
+        batch reads its own inputs."""
+        up = lambda a: to_tensor(a).to(self.device,  # noqa: E731
                                        non_blocking=True)
         self.staging = (PodArrays(**{f: up(getattr(pods, f))
                                      for f in PODARRAY_FIELDS}),
-                        kt, map_tensors(lambda x: x.to(self.kt.device,
+                        kt, map_tensors(lambda x: x.to(self.device,
                                                         non_blocking=True),
-                                        state))
+                                        state), params)
 
-    def start(self) -> None:
+    def start(self) -> LaneJob:
         """Copy the staged batch into the step's buffers (widening packed
-        tables on the device) and queue its first replay (CUDA)."""
-        pods, kt, state = self.staging
+        tables on the device) and queue its first replay (CUDA); returns
+        the batch's ``LaneJob``."""
+        pods, kt, state, params = self.staging
         self.staging = None
         pods, kt = unpack_query_tables(pods, kt, self.plan)
         for f in PODARRAY_FIELDS:
             getattr(self.pods, f).copy_(getattr(pods, f))
         self.rows.copy_(self.mod.pod_table(self.pods))
         self.kt.copy_(kt)
+        if params is not None:
+            copy_tensors_(self.params, params)
         if self.chunk is not None:
             copy_state_(self.chunk.state, state)
             self.chunk.replay()
-        else:
-            self.state = state
+        self.job = LaneJob(self.step, state, self.max_steps,
+                           self.mod.lane_active, self.chunk)
+        return self.job
 
-    def finish(self):
-        """Drive the batch to the end and finalize it: the result's
-        tensors are copied out of the graph's buffers."""
-        if self.chunk is not None:
-            final = self.chunk.run()
-        else:
-            final = run_batched_lanes(self.step, self.state, self.max_steps,
-                                      active_fn=self.mod.lane_active)
-        res = self.mod.finalize(self.wl, self.cfg, final,
+    def harvest(self):
+        """The drained batch's results, copied out of the graph's
+        buffers."""
+        res = self.mod.finalize(self.wl, self.cfg, self.job.state,
                                 lane_trace=self.lane_trace)
         return map_tensors(torch.clone, res)
+
+    def finish(self):
+        """Drive the batch to the end and finalize it."""
+        drain([self.job])
+        return self.harvest()
+
+
+class _MeshGraph:
+    """One (global lanes, pod bucket) program of a mesh-sharded serve
+    engine: a ``_Graph`` of ``lanes / shards`` lanes per shard, on the
+    shard's device, run through the engine's sharded serve function
+    (``parallel.mesh.make_sharded_*_serve_fn``): every shard's batch is
+    started before any is read, the shards drain together, and their
+    results join on the lead device."""
+
+    def __init__(self, eng: "ServeEngine", lanes: int, bucket: int,
+                 example):
+        sh = eng._sharding
+        per = lanes // sh.shards
+        self.eng, self.lanes, self.bucket = eng, lanes, bucket
+        pods, kt, state0 = example
+        self.graphs = []
+        for p, k, s, dev in zip(sh.split(pods), sh.split(kt),
+                                sh.split(state0), sh.devices):
+            with _device_scope(dev, eng._streams):
+                self.graphs.append(_Graph(
+                    eng, per, bucket,
+                    eng._graph_constant(eng._graph_params(dev, per)),
+                    (p, k, s), dev))
+        self.fn = eng._sharded_serve_fn(self.graphs)
+        self.footprint = {
+            k: sum(g.footprint.get(k, 0) for g in self.graphs)
+            for k in FOOTPRINT_KEYS + ("total_bytes",)
+        } if self.graphs[0].footprint else {}
+        self.staging = None
+        self.pending = None
+
+    def stage(self, pods: PodArrays, kt, state, params=None) -> None:
+        """Upload each shard's slice of the batch to its device; ``kt``
+        (and ``params``, when given) are already per-shard lists."""
+        sh = self.eng._sharding
+        params = params if params is not None else [None] * sh.shards
+        for g, p, k, s, q in zip(self.graphs, sh.split(pods), kt,
+                                 sh.split(state), params):
+            with _device_scope(g.device, self.eng._streams):
+                g.stage(p, k, s, q)
+        self.staging = [g.staging for g in self.graphs]
+
+    def start(self) -> None:
+        self.pending = self.fn(*self.eng._sharded_args(self.graphs,
+                                                       self.staging))
+        self.staging = None
+
+    def finish(self):
+        return self.pending.result()
 
 
 class _Inflight(NamedTuple):
@@ -427,7 +503,11 @@ class ServeEngine:
     semantics and is the parity default; "flat" trades the documented
     retry-rule divergence for throughput). ``prefilter_k=None`` engages
     the auto-enable heuristic (``sim.engine.resolve_auto_prefilter``).
-    ``device`` defaults to ``cuda``; ``mesh`` waits for the mesh."""
+    ``device`` defaults to ``cuda``. ``mesh`` (a ``parallel.mesh.Mesh``
+    of this process) shards the lane axis: lane buckets are per shard,
+    each (global lanes, pod bucket) program holds one graph per shard on
+    the shard's device, and the engine's device is the mesh's lead
+    device."""
 
     #: how this engine binds the champion: "aot" makes the policy a
     #: constant of every graph (a new champion = new graphs); "vm"
@@ -448,13 +528,22 @@ class ServeEngine:
                  mesh=None,
                  snapshot_cache_max_bytes: int = 0,
                  recorder=None, profiler=None, device=None):
-        if mesh is not None:
-            raise ValueError(UNPORTED_MESH)
         if engine == "fused":
             raise ValueError(
                 "the fused kernel evaluates parametric populations only; "
                 "serve champions on 'exact' (parity default) or 'flat'")
-        self.device = resolve_device(device)
+        # mesh-wide serving: the lane axis split over the mesh's shards
+        self.mesh = mesh
+        self._sharding = serve_sharding(mesh) if mesh is not None else None
+        self._shards = num_shards(mesh) if mesh is not None else 1
+        if self._sharding is not None:
+            if device is not None and \
+                    torch.device(device).type != self._sharding.lead.type:
+                raise ValueError(f"device={device!r} disagrees with the "
+                                 f"mesh's {self._sharding.lead}")
+            self.device = self._sharding.lead
+        else:
+            self.device = resolve_device(device)
         self.champion = champion
         self.cluster = workload.cluster.to(self.device)
         self._cluster_host = workload.cluster.to("cpu")
@@ -467,12 +556,15 @@ class ServeEngine:
         self.profiler = (profiler if profiler is not None
                          else obs.NULL_PROFILER)
         self._mod = get_engine(engine)
-        self._graphs: Dict[tuple, _Graph] = {}
+        self._graphs: Dict[tuple, Any] = {}
         self.cold_compiles = 0
-        # every batch of this engine runs on one stream, whichever thread
-        # drives it (the caller's, or the service's batcher thread)
-        self._stream = (torch.cuda.Stream(self.device)
-                        if self.device.type == "cuda" else None)
+        # every batch of this engine runs on one stream per device,
+        # whichever thread drives it (the caller's, or the service's
+        # batcher thread)
+        devices = (self._sharding.devices if self._sharding is not None
+                   else [self.device])
+        self._streams = {d: torch.cuda.Stream(d) for d in devices
+                         if d.type == "cuda"}
         # device-resident snapshot tables: content-hash -> (buffer, bytes)
         self._ktable_cache: "OrderedDict[Tuple, Tuple[Any, int]]" = \
             OrderedDict()
@@ -542,10 +634,41 @@ class ServeEngine:
         return query_pack_plan(self.bucket_config(pod_bucket), pod_bucket,
                                self.envelope.max_gpu_milli)
 
-    def _graph_params(self):
-        """The params the graphs read: for this engine the champion's
-        own, a constant of each graph (cloned into it)."""
-        return self.params
+    def _graph_params(self, device, lanes: int):
+        """The params a graph of ``lanes`` lanes on ``device`` reads: for
+        this engine the champion's own, a constant of each graph (cloned
+        into it by ``_graph_constant``)."""
+        return map_tensors(lambda x: x.to(device), self.params)
+
+    @property
+    def graph_policy(self):
+        """The policy the graphs bind to their params: the champion's
+        (``param_policy``) for this engine."""
+        return self.param_policy
+
+    def _stage_params(self, lanes: int, idxs):
+        """Per-batch params to copy into a graph with the batch (one per
+        shard with a mesh): none for this engine."""
+        return None
+
+    def _sharded_serve_fn(self, graphs):
+        """The sharded serve function of a ``_MeshGraph``'s shard graphs:
+        ``serve_fn(shard, pods, ktable, state0)`` starts one shard."""
+        def serve_fn(s, pods, kt, state):
+            return self._start_shard(graphs[s], pods, kt, state, None)
+
+        return make_sharded_serve_fn(
+            serve_fn, self.mesh, finish=lambda s, _job: graphs[s].harvest())
+
+    def _sharded_args(self, graphs, staging):
+        """A staged ``_MeshGraph`` batch as the sharded serve function's
+        per-shard argument lists."""
+        return tuple([st[i] for st in staging] for i in range(3))
+
+    def _start_shard(self, graph: _Graph, pods, kt, state, params):
+        graph.staging = (pods, kt, state, params)
+        with _device_scope(graph.device, self._streams):
+            return graph.start()
 
     def _stage_batch(self, pod_lists, bucket: int, lanes: int):
         """Host staging of one chunk: stacked, packed, lane-padded tables
@@ -568,20 +691,17 @@ class ServeEngine:
         return pq, _pad_rows(kt, lanes), s0
 
     def _device_scope(self):
-        """The engine's device and stream, for whichever thread runs it."""
-        import contextlib
+        """The engine's (lead) device and stream, for whichever thread
+        runs it."""
+        return _device_scope(self.device, self._streams)
 
-        stack = contextlib.ExitStack()
-        if self._stream is not None:
-            stack.enter_context(torch.cuda.device(self.device))
-            stack.enter_context(torch.cuda.stream(self._stream))
-        return stack
-
-    def compiled_for(self, lanes: int, pod_bucket: int) -> _Graph:
-        """The (lanes, pod_bucket) graph, built (captured on CUDA) on
-        first use; later calls replay it."""
-        params = self._graph_params()
-        key = (pod_bucket,) + graph_key(lanes, params)
+    def compiled_for(self, lanes: int, pod_bucket: int):
+        """The (global lanes, pod_bucket) program, built (captured on
+        CUDA) on first use; later calls replay it. Without a mesh it is
+        one ``_Graph``, with one a ``_MeshGraph`` of a graph per shard."""
+        per = lanes // self._shards
+        key = (pod_bucket,) + graph_key(
+            lanes, self._graph_params(self.device, per))
         hit = self._graphs.get(key)
         if hit is not None:
             return hit
@@ -589,17 +709,22 @@ class ServeEngine:
                 self.profiler.stage("compile", lanes=lanes, pods=pod_bucket), \
                 obs.span("serve_compile", lanes=lanes, pods=pod_bucket,
                          engine=self.engine_name):
-            graph = _Graph(self, lanes, pod_bucket,
-                           self._graph_constant(params),
-                           self._example_batch(lanes, pod_bucket))
+            example = self._example_batch(lanes, pod_bucket)
+            if self._sharding is not None:
+                graph = _MeshGraph(self, lanes, pod_bucket, example)
+            else:
+                graph = _Graph(self, lanes, pod_bucket,
+                               self._graph_constant(
+                                   self._graph_params(self.device, lanes)),
+                               example, self.device)
         self._graphs[key] = graph
         self.cold_compiles += 1
         # footprint ledger: every ladder rung's device claim (None, so no
         # record, on the CPU)
         record_footprint(self.memory_component, self._exe_key(lanes,
                                                               pod_bucket),
-                         footprint=graph.footprint, recorder=self.recorder,
-                         engine=self.engine_name,
+                         footprint=graph.footprint, mesh=self.mesh,
+                         recorder=self.recorder, engine=self.engine_name,
                          engine_kind=self.engine_kind,
                          layout_key=DEFAULT_LAYOUT_KEY)
         return graph
@@ -614,19 +739,23 @@ class ServeEngine:
     def warmup(self, lane_buckets: Optional[Sequence[int]] = None,
                pod_buckets: Optional[Sequence[int]] = None) -> int:
         """Eagerly build every (lane, pod) bucket combination (or the
-        given subsets). Returns the number of graphs now resident."""
+        given subsets; lane buckets are per shard and scale by the
+        mesh's shard count). Returns the number of programs now
+        resident."""
         with self.profiler.stage("warmup"):
             for lb in lane_buckets or self.envelope.lane_buckets():
                 for pb in pod_buckets or self.envelope.pod_buckets():
-                    self.compiled_for(lb, pb)
+                    self.compiled_for(serve_lane_count(lb, self.mesh), pb)
         return len(self._graphs)
 
     # ----- answering
 
     def _global_lanes(self, n_queries: int) -> int:
-        """Lane count for an n-query chunk: the smallest envelope lane
-        bucket covering it."""
-        return self.envelope.lanes_for(max(1, int(n_queries)))
+        """Global lane count for an n-query chunk: the smallest envelope
+        lane bucket covering the per-shard share, times the shards."""
+        per_shard = -(-int(n_queries) // self._shards)
+        return serve_lane_count(self.envelope.lanes_for(max(1, per_shard)),
+                                self.mesh)
 
     def snapshot_cache_stats(self) -> dict:
         """Device-resident snapshot-table cache counters plus the H2D
@@ -650,11 +779,12 @@ class ServeEngine:
         return int(self._ktable_cache_bytes)
 
     def _ktable_for(self, lanes: int, bucket: int, kt: np.ndarray):
-        """The device-resident snapshot-table buffer for this batch:
-        content-hash cache keyed on the (packed) table bytes at the
-        dispatch shape. Consecutive batches whose queries share pod
-        counts hash identically and re-use the resident buffer, shipping
-        zero snapshot bytes."""
+        """The device-resident snapshot-table buffer for this batch (with
+        a mesh, one per shard, each on its shard's device): content-hash
+        cache keyed on the (packed) table bytes at the dispatch shape.
+        Consecutive batches whose queries share pod counts hash
+        identically and re-use the resident buffer, shipping zero
+        snapshot bytes."""
         digest = hashlib.blake2b(kt.tobytes(), digest_size=16).digest()
         key = (lanes, bucket, kt.dtype.str, digest)
         hit = self._ktable_cache.get(key)
@@ -664,7 +794,11 @@ class ServeEngine:
             return hit[0]
         self.snapshot_cache_misses += 1
         padded = _pad_rows(kt, lanes)
-        dev = to_tensor(padded).to(self.device, non_blocking=True)
+        if self._sharding is not None:
+            dev = [to_tensor(k).to(d, non_blocking=True) for k, d in
+                   zip(self._sharding.split(padded), self._sharding.devices)]
+        else:
+            dev = to_tensor(padded).to(self.device, non_blocking=True)
         nbytes = int(padded.nbytes)
         self.h2d_bytes_total += nbytes
         self._ktable_cache[key] = (dev, nbytes)
@@ -695,7 +829,7 @@ class ServeEngine:
         for i, pods in enumerate(pod_lists):
             groups.setdefault(
                 self.envelope.pod_bucket_for(len(pods)), []).append(i)
-        mb = self.envelope.max_batch
+        mb = self.envelope.max_batch * self._shards
         with self._device_scope():
             inflight: Optional[_Inflight] = None
             for bucket, idxs in groups.items():
@@ -722,7 +856,7 @@ class ServeEngine:
         with self.profiler.stage("h2d", lanes=lanes, pods=bucket):
             kt_dev = self._ktable_for(lanes, bucket, kt)
             pods, s0 = _pad_lanes(pods, s0, lanes)
-            graph.stage(pods, kt_dev, s0)
+            graph.stage(pods, kt_dev, s0, self._stage_params(lanes, idxs))
             self.h2d_bytes_total += tree_h2d_bytes(pods, s0)
         self.h2d_queries += len(idxs)
         self.last_batch_timing["pack_h2d_s"] += time.perf_counter() - t0
@@ -742,7 +876,7 @@ class ServeEngine:
                     "events_processed")}
         self.last_batch_timing["dispatch_s"] += time.perf_counter() - t0
         record_layout(self.layout_component, DEFAULT_LAYOUT_KEY,
-                      recorder=self.recorder,
+                      mesh=self.mesh, recorder=self.recorder,
                       **occupancy_stats(real, lanes))
         for lane, i in enumerate(idxs):
             answers[i] = self._extract(host, lane, len(pod_lists[i]),
@@ -836,35 +970,44 @@ class ServeEngine:
         """Rebuild a saved engine (fks_tpu's or the port's artifact).
         Self-contained: the artifact pins the cluster arrays and the
         resolved prefilter-k (no re-probe). An artifact saved by a VM
-        engine loads as one. ``mesh`` waits for the mesh."""
+        engine loads as one, or, with a portfolio manifest, as a
+        ``portfolio.PortfolioEngine`` of its whole slot table. ``mesh`` is
+        a property of the process that runs the engine, so it is passed
+        here and never saved."""
         if mesh is not None:
-            raise ValueError(UNPORTED_MESH)
+            _check_mesh(mesh)
         with open(os.path.join(directory, "artifact.json")) as f:
             doc = json.load(f)
         if doc.get("version") != ARTIFACT_VERSION:
             raise ValueError(
                 f"artifact version {doc.get('version')} != "
                 f"{ARTIFACT_VERSION}")
-        if doc.get("portfolio"):
-            raise ValueError(
-                "portfolio artifacts need portfolio/, which waits for the "
-                "mesh (ROADMAP queue 1 item 3)")
         cluster = _cluster_from_json(doc["cluster"])
         wl = Workload(cluster=cluster,
                       pods=_pods_from_dicts(doc.get("base_pods", [])))
         extra = {}
+        portfolio = doc.get("portfolio")
         if doc.get("engine_kind", "aot") == "vm" and cls.engine_kind != "vm":
-            from fks_tpu_torch.serve.vm_engine import VMServeEngine
-            cls = VMServeEngine
+            if portfolio:
+                from fks_tpu_torch.portfolio.engine import PortfolioEngine
+                cls = PortfolioEngine
+            else:
+                from fks_tpu_torch.serve.vm_engine import VMServeEngine
+                cls = VMServeEngine
         if cls.engine_kind == "vm" and doc.get("program_capacity"):
             extra["program_capacity"] = int(doc["program_capacity"])
-        return cls(ChampionSpec.from_json(doc["champion"]), wl,
+        champ: Any = ChampionSpec.from_json(doc["champion"])
+        if portfolio and getattr(cls, "is_portfolio", False):
+            champ = [ChampionSpec.from_json(c, source=c.get("source", ""))
+                     for c in portfolio["slots"]]
+            extra["n_slots"] = int(portfolio["n_slots"])
+        return cls(champ, wl,
                    envelope=ShapeEnvelope.from_json(doc["envelope"]),
                    engine=doc["engine"],
                    prefilter_k=int(doc["prefilter_k"]),
                    state_pack=bool(doc["state_pack"]),
                    max_steps_factor=int(doc["max_steps_factor"]),
-                   recorder=recorder, device=device, **extra)
+                   mesh=mesh, recorder=recorder, device=device, **extra)
 
 
 def _pods_from_dicts(pods: List[dict]) -> PodArrays:

@@ -13,7 +13,10 @@ new tables and a copy into those buffers — zero graph captures.
 
 Graphs are keyed by ``sim.engine.graph_key`` (lane count and the program's
 tensor shapes), so a program of another capacity bucket captures graphs of
-its own instead of being copied into another shape's buffers.
+its own instead of being copied into another shape's buffers. With a mesh
+every shard device holds its own copy of the tables (the replicated
+argument of ``parallel.mesh.make_sharded_vm_serve_fn``), and
+``swap_program`` copies the new tables into each.
 
 Champions outside the VM vocabulary raise ``VMUnsupported`` from the
 constructor / ``swap_program`` — the caller (``cli serve``) falls back to
@@ -22,6 +25,7 @@ hatch.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import hashlib
 import threading
@@ -33,6 +37,7 @@ import torch
 
 from fks_tpu_torch.data.entities import Workload
 from fks_tpu_torch.funsearch import vm
+from fks_tpu_torch.parallel.mesh import make_sharded_vm_serve_fn
 from fks_tpu_torch.serve.artifact import ChampionSpec, ServeEngine
 from fks_tpu_torch.serve.batcher import (
     pack_program_tables, to_tensor, tree_h2d_bytes, unpack_program_tables,
@@ -87,13 +92,17 @@ class VMServeEngine(ServeEngine):
         self._overlap_warmed: set = set()
         # swaps exclude in-flight batches: answer_batch holds this for the
         # whole batch, swap_program for the flip. A shadow view shares it,
-        # since it shares the graphs (and their buffers) too
+        # since it shares the graphs (and their buffers) too. The
+        # turnstile lets a waiting swap in before the next batch: batches
+        # pass through it, a swap holds it while it waits for the lock, so
+        # callers answering batches back to back cannot starve a swap
         self._swap_lock = threading.RLock()
-        # the graphs' program buffers, per capacity: (packed device
-        # tables, the VMProgram of views into them), and which uploaded
-        # tables they hold now (shared with shadow views)
-        self._graph_tables: Dict[int, tuple] = {}
-        self._graph_holds: Dict[int, object] = {}
+        self._swap_turnstile = threading.Lock()
+        # the graphs' program buffers, per (capacity, device): (packed
+        # device tables, the VMProgram of views into them), and which
+        # uploaded tables they hold now (shared with shadow views)
+        self._graph_tables: Dict[tuple, tuple] = {}
+        self._graph_holds: Dict[tuple, object] = {}
         super().__init__(champion, workload, **kw)
         self._prog_dev = self._upload_program(self.params)
 
@@ -185,28 +194,34 @@ class VMServeEngine(ServeEngine):
             torch.cuda.synchronize(self.device)
         return packed
 
-    def _graph_program(self) -> vm.VMProgram:
-        """The program the graphs of this capacity read: views into the
-        capacity's table buffers, made on first need."""
-        cap = self.program_capacity
-        if cap not in self._graph_tables:
-            tables = tuple(x.clone() for x in self._prog_dev)
-            self._graph_tables[cap] = (tables,
-                                       unpack_program_tables(tables))
-            self._graph_holds[cap] = self._prog_dev
-        return self._graph_tables[cap][1]
+    def _unpack_tables(self, tables):
+        """Device tables -> the program the graphs read (views)."""
+        return unpack_program_tables(tables)
+
+    def _graph_program(self, device=None):
+        """The program the graphs of this capacity on ``device`` (default:
+        the engine's) read: views into that device's table buffers, made
+        on first need."""
+        key = (self.program_capacity,
+               self.device if device is None else device)
+        if key not in self._graph_tables:
+            tables = tuple(x.to(device, copy=True) for x in self._prog_dev)
+            self._graph_tables[key] = (tables, self._unpack_tables(tables))
+            self._graph_holds[key] = self._prog_dev
+        return self._graph_tables[key][1]
 
     def _hold_program(self) -> None:
-        """Copy this engine's tables into its capacity's graph buffers
-        unless they hold them already (call under ``_swap_lock``)."""
-        cap = self.program_capacity
-        if cap in self._graph_tables \
-                and self._graph_holds.get(cap) is not self._prog_dev:
+        """Copy this engine's tables into its capacity's graph buffers on
+        every device unless they hold them already (call under
+        ``_swap_lock``)."""
+        for key, (tables, _) in self._graph_tables.items():
+            if key[0] != self.program_capacity \
+                    or self._graph_holds.get(key) is self._prog_dev:
+                continue
             with self._device_scope():
-                for dst, src in zip(self._graph_tables[cap][0],
-                                    self._prog_dev):
+                for dst, src in zip(tables, self._prog_dev):
                     dst.copy_(src)
-            self._graph_holds[cap] = self._prog_dev
+            self._graph_holds[key] = self._prog_dev
 
     def swap_program(self, champion: ChampionSpec) -> ChampionSpec:
         """The zero-capture promotion hot path: lower the new champion,
@@ -224,7 +239,7 @@ class VMServeEngine(ServeEngine):
         dev = self._upload_program(prog)
         t2 = time.perf_counter()
         h2d = tree_h2d_bytes(pack_program_tables(prog))
-        with self._swap_lock:  # exclude in-flight batches for the flip
+        with self._swap_flip():  # exclude in-flight batches for the flip
             old = self.champion
             self.champion = champion
             self.params = map_tensors(lambda x: x.to(self.device), prog)
@@ -270,8 +285,21 @@ class VMServeEngine(ServeEngine):
 
     # ----- graphs (champion-agnostic)
 
-    def _graph_params(self):
-        return self._graph_program()
+    def _graph_params(self, device, lanes: int):
+        return self._graph_program(device)
+
+    def _sharded_serve_fn(self, graphs):
+        """``serve_fn(shard, program, pods, ktable, state0)``: the program
+        is the shard's own table buffers, replicated per device."""
+        def serve_fn(s, program, pods, kt, state):
+            return self._start_shard(graphs[s], pods, kt, state, program)
+
+        return make_sharded_vm_serve_fn(
+            serve_fn, self.mesh, finish=lambda s, _job: graphs[s].harvest())
+
+    def _sharded_args(self, graphs, staging):
+        return ([self._graph_program(g.device) for g in graphs],) + \
+            super()._sharded_args(graphs, staging)
 
     def _graph_constant(self, params):
         # the shared buffers themselves: swap_program rewrites them
@@ -283,9 +311,24 @@ class VMServeEngine(ServeEngine):
 
     # ----- answering
 
+    @contextlib.contextmanager
+    def _batch_scope(self):
+        """Hold the swap lock for a whole batch, after letting a waiting
+        swap go first."""
+        with self._swap_turnstile:
+            pass
+        with self._swap_lock:
+            yield
+
+    @contextlib.contextmanager
+    def _swap_flip(self):
+        """Hold the swap lock for a flip; new batches wait meanwhile."""
+        with self._swap_turnstile, self._swap_lock:
+            yield
+
     def answer_batch(self, pod_lists):
         # a whole batch answers under ONE champion: swap_program's flip
         # waits for the in-flight batch instead of tearing it
-        with self._swap_lock:
+        with self._batch_scope():
             self._hold_program()
             return super().answer_batch(pod_lists)

@@ -52,7 +52,7 @@ fks_tpu, changes no result: the policy runs on every step.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Optional
+from typing import Any, Callable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -563,24 +563,29 @@ class GraphedChunk:
         self.active_fn = lane_active if active_fn is None else active_fn
         self.steps = steps = graph_steps(step)
         self.replays = 0
-        dev = next(_tensor_leaves(state)).device
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            run_chunk(step, state, steps)
-        torch.cuda.current_stream(dev).wait_stream(side)
-        self.graph = torch.cuda.CUDAGraph()
-        with telemetry.graph_capture("chunk"), torch.cuda.graph(self.graph):
-            run_chunk(step, state, steps)
+        # the state's card, whichever card is current (a mesh's shards
+        # may sit on several)
+        self.device = dev = next(_tensor_leaves(state)).device
+        with torch.cuda.device(dev):
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                run_chunk(step, state, steps)
+            torch.cuda.current_stream(dev).wait_stream(side)
+            self.graph = torch.cuda.CUDAGraph()
+            with telemetry.graph_capture("chunk"), \
+                    torch.cuda.graph(self.graph):
+                run_chunk(step, state, steps)
 
     def replay(self) -> None:
-        self.graph.replay()
+        with torch.cuda.device(self.device):
+            self.graph.replay()
         self.replays += 1
 
     def run(self):
         """Replay until no lane is active (one host check per replay)."""
-        while bool(self.active_fn(self.state, self.max_steps).any()):
-            self.replay()
+        drain([LaneJob(self.step, self.state, self.max_steps,
+                       self.active_fn, self)])
         return self.state
 
 
@@ -589,13 +594,50 @@ def run_batched_lanes(step, state, max_steps: int, active_fn=None):
     the CPU (a host check every ``SYNC_EVERY`` steps), through a
     ``GraphedChunk`` on CUDA. ``active_fn`` is the engine's
     ``lane_active``, the predicate its step masks with."""
-    active_fn = lane_active if active_fn is None else active_fn
-    if next(_tensor_leaves(state)).is_cuda:
-        return GraphedChunk(step, state, max_steps, active_fn).run()
-    while bool(active_fn(state, max_steps).any()):
+    chunk = (GraphedChunk(step, state, max_steps, active_fn)
+             if next(_tensor_leaves(state)).is_cuda else None)
+    job = LaneJob(step, state, max_steps, active_fn, chunk)
+    drain([job])
+    return job.state
+
+
+class LaneJob:
+    """A stack of self-masking lanes on their way to the end, advanced by
+    ``drain``: through its ``GraphedChunk`` (one replay per advance) when
+    it has one, else ``SYNC_EVERY`` eager steps per advance, as
+    ``run_batched_lanes`` drives them."""
+
+    def __init__(self, step, state, max_steps: int, active_fn=None,
+                 chunk: Optional[GraphedChunk] = None):
+        self.step = step
+        self.state = chunk.state if chunk is not None else state
+        self.max_steps = max_steps
+        self.active_fn = lane_active if active_fn is None else active_fn
+        self.chunk = chunk
+
+    def active(self) -> torch.Tensor:
+        """Whether any lane is still active (a device bool, unread)."""
+        return self.active_fn(self.state, self.max_steps).any()
+
+    def advance(self) -> None:
+        if self.chunk is not None:
+            self.chunk.replay()
+            return
         for _ in range(SYNC_EVERY):
-            state = step(state)
-    return state
+            self.state = self.step(self.state)
+
+
+def drain(jobs: Sequence[LaneJob]) -> None:
+    """Advance every job until none of its lanes is active. Each round
+    queues one advance of every live job before it reads any job's flag,
+    so jobs on several devices (or several graphs of one device) run
+    together, and the host reads each round's flags once."""
+    live = list(jobs)
+    while live:
+        flags = [job.active() for job in live]
+        live = [job for job, flag in zip(live, flags) if bool(flag)]
+        for job in live:
+            job.advance()
 
 
 # ------------------------------------------------------- the exact engine
@@ -965,7 +1007,12 @@ def graph_key(pop: int, params) -> tuple:
 def population_runner(workload: Workload, param_policy, cfg: SimConfig,
                       build_step_fn, finalize_fn, active_fn):
     """The population runner of ``make_population_run_fn`` for either
-    engine, given its ``build_step``, ``finalize`` and ``lane_active``."""
+    engine, given its ``build_step``, ``finalize`` and ``lane_active``.
+    ``run.start(params, state0)`` sets a population's lanes up as a
+    ``LaneJob`` (on CUDA in this runner's graph for the key) and
+    ``run.finish(job)`` finalizes it, so a caller can drain several
+    runners' jobs together (``parallel.mesh``); ``run`` is the two with
+    ``drain`` between them."""
     ktable, max_steps = loop_tables(workload, cfg)
     graphs = {}
 
@@ -973,13 +1020,11 @@ def population_runner(workload: Workload, param_policy, cfg: SimConfig,
         return bind_step(build_step_fn, workload, param_policy, params, cfg,
                          ktable, max_steps)
 
-    def run(params, state0):
+    def start(params, state0) -> LaneJob:
         pop = batch_size(params)
         state = broadcast_state(state0, pop)
         if not next(_tensor_leaves(state0)).is_cuda:
-            final = run_batched_lanes(build(params), state, max_steps,
-                                      active_fn)
-            return finalize_fn(workload, cfg, final)
+            return LaneJob(build(params), state, max_steps, active_fn)
         key = graph_key(pop, params)
         chunk = graphs.get(key)
         if chunk is None:
@@ -989,10 +1034,22 @@ def population_runner(workload: Workload, param_policy, cfg: SimConfig,
         else:
             copy_tensors_(chunk.step.params, params)
             copy_state_(chunk.state, state)
-        return map_tensors(torch.clone,
-                           finalize_fn(workload, cfg, chunk.run()))
+        return LaneJob(chunk.step, chunk.state, max_steps, active_fn, chunk)
+
+    def finish(job: LaneJob) -> SimResult:
+        """The job's results; a graph's are copied out of its buffers."""
+        res = finalize_fn(workload, cfg, job.state)
+        return map_tensors(torch.clone, res) if job.chunk is not None \
+            else res
+
+    def run(params, state0):
+        job = start(params, state0)
+        drain([job])
+        return finish(job)
 
     run.graphs = graphs
+    run.start = start
+    run.finish = finish
     return run
 
 

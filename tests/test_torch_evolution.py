@@ -222,9 +222,10 @@ def test_batched_vm_tier_matches_one_by_one(micro):
 
 def test_unported_options_raise(micro):
     wl = port_workload(micro)
-    with pytest.raises(ValueError, match="queue 1 item 3"):
+    # mesh= runs (tests/test_torch_mesh.py); what is not a Mesh raises
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         CodeEvaluator(wl, mesh=object(), device="cpu")
-    with pytest.raises(ValueError, match="queue 1 item 3"):
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         ParametricEvolution(wl, pop_size=4, mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="queue 1 item 6"):
         evo.run(wl, EvolutionConfig(**BASE), profile=True, device="cpu")

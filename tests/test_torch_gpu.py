@@ -440,3 +440,93 @@ def test_serve_warm_path_and_swap_capture_nothing(cuda):
     fresh = VMServeEngine(other, wl, envelope=env, device=cuda)
     for a, b in zip(swapped, fresh.answer_batch(queries)):
         assert a["placements"] == b["placements"] and a["score"] == b["score"]
+
+
+# ------------------------------------------------------ mesh, portfolio
+
+
+@pytest.mark.parametrize("engine", ["exact", "fused"])
+def test_sharded_eval_on_card_matches_unsharded(cuda, engine):
+    """4 logical shards of the card give the unsharded eval's every
+    field, and one launch of the fused kernel per shard."""
+    from fks_tpu_torch.parallel import (
+        make_sharded_eval, pad_population, population_mesh,
+    )
+    from fks_tpu_torch.parallel.mesh import top_k_real
+
+    wl = contended_workload() if engine == "fused" else roomy_workload()
+    cfg = SimConfig(track_ctime=False, max_steps=4 * 96) \
+        if engine == "fused" else SimConfig(track_ctime=False)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(3)
+    pop, real = pad_population(parametric.init_population(gen, 10,
+                                                          noise=0.4), 4)
+    want = make_population_eval(wl, cfg=cfg, engine=engine,
+                                device=cuda)(pop)
+    ev = make_sharded_eval(wl, population_mesh([cuda] * 4), cfg=cfg,
+                           engine=engine, elite_k=3)
+    fused.fused_sim.launches = 0
+    scores, idx, _ = ev(pop, real)
+    if engine == "fused":
+        assert fused.fused_sim.launches == 4
+    assert torch.equal(scores, want.policy_score)
+    assert torch.equal(idx, top_k_real(want.policy_score, real, 3)[1])
+    assert_result_matches(ev.results(pop), result_fields(want), rtol=0,
+                          atol=0)
+
+
+def test_sharded_serving_on_card_matches_cpu(cuda):
+    """A VM engine on 2 logical shards of the card answers as the CPU
+    engine, captures one graph per shard, and swaps with zero captures."""
+    from fks_tpu_torch.funsearch import template
+    from fks_tpu_torch.obs.telemetry import CompileWatcher
+    from fks_tpu_torch.parallel import population_mesh
+    from fks_tpu_torch.serve import ChampionSpec, VMServeEngine
+
+    champ, wl, env = _serve_setup(cuda)
+    eng = VMServeEngine(champ, wl, envelope=env,
+                        mesh=population_mesh([cuda] * 2))
+    cpu = VMServeEngine(champ, wl, envelope=env, device="cpu")
+    queries = _serve_queries()
+    with CompileWatcher() as w:
+        got = eng.answer_batch(queries)
+    assert w.backend_compile_count == 2 * len(eng._graphs)
+    for a, b in zip(got, cpu.answer_batch(queries)):
+        assert a["placements"] == b["placements"]
+        assert abs(a["score"] - b["score"]) <= 2e-6
+    other = ChampionSpec(code=template.fill_template(
+        "score = 2000 + (node.memory_mib_left - pod.memory_mib) // 1000"))
+    with CompileWatcher() as w:
+        eng.swap_program(other)
+        swapped = eng.answer_batch(queries)
+    assert w.backend_compile_count == 0
+    fresh = VMServeEngine(other, wl, envelope=env, device="cpu")
+    for a, b in zip(swapped, fresh.answer_batch(queries)):
+        assert a["placements"] == b["placements"]
+
+
+def test_portfolio_on_card_selftest_and_swap(cuda):
+    """The portfolio on the card: the parity sweep holds with drift 0 and
+    a slot swap captures nothing."""
+    from fks_tpu_torch.funsearch import template
+    from fks_tpu_torch.obs.telemetry import CompileWatcher
+    from fks_tpu_torch.portfolio import PortfolioEngine, portfolio_selftest
+    from fks_tpu_torch.serve import ChampionSpec
+
+    _, wl, env = _serve_setup(cuda)
+    champs = [ChampionSpec(code=template.fill_template(lg), source=str(i))
+              for i, lg in enumerate((
+                  "score = 1000",
+                  "score = node.cpu_milli_left - pod.cpu_milli",
+                  "score = pod.cpu_milli - node.cpu_milli_left"))]
+    eng = PortfolioEngine(champs, wl, envelope=env, n_slots=4, device=cuda)
+    st = portfolio_selftest(eng, count=4, pods_per_query=3)
+    assert st["ok"] and st["max_drift"] == 0.0
+    queries = _serve_queries()[:4]
+    eng.answer_batch(queries, slots=[1, 2, 3, 0])
+    with CompileWatcher() as w:
+        old = eng.swap_slot(1, champs[2])
+        swapped = eng.answer_batch(queries, slots=[1] * 4)
+        eng.swap_slot(1, old)
+    assert w.backend_compile_count == 0
+    assert swapped == eng.answer_batch(queries, slots=[2] * 4)

@@ -14,7 +14,8 @@
   fks_tpu's (ints exact, floats within rtol/atol 2e-6), in both engines,
   and each candidate's row equal to its own one-candidate eval.
 - ``aggregate`` and ``RobustConfig`` against fks_tpu's; the rejections
-  (fused engine, the sharded suite eval, the unported flags).
+  (fused engine, a sharded suite eval without a mesh, the unported
+  flags).
 - Slow: ``default8`` on the full default trace for the 0.5365 champion
   against fks_tpu's exact engine.
 """
@@ -275,8 +276,10 @@ def test_rejections(smoke3):
     with pytest.raises(ValueError, match="decision trace is not supported"):
         fused.make_fused_population_run(
             suite.workloads[0], SimConfig(decision_trace=True), device="cpu")
-    with pytest.raises(ValueError, match="parallel/mesh.py"):
-        make_sharded_suite_eval(suite)
+    # the sharded suite eval runs (tests/test_torch_mesh.py); what is not
+    # a Mesh raises
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
+        make_sharded_suite_eval(suite, object())
     for flag in (dict(node_prefilter_k=2), dict(state_pack=True)):
         # the scale knobs run on fault workloads in both engines; the
         # fused kernel still refuses them

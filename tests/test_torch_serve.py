@@ -534,16 +534,20 @@ def test_waiting_options_raise(engines):
     from fks_tpu_torch import cli
 
     wl = port_workload(jax_synthetic(8, 16, seed=0))
-    with pytest.raises(ValueError, match="queue 1 item 3"):
+    # mesh= runs (tests/test_torch_mesh.py); what is not a Mesh raises
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         ServeEngine(eng.champion, wl, mesh=object(), device="cpu")
-    with pytest.raises(ValueError, match="queue 1 item 3"):
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         ServeEngine.load("unused", mesh=object())
     with pytest.raises(ValueError, match="fused kernel"):
         ServeEngine(eng.champion, wl, engine="fused", device="cpu")
-    for argv, item in ((["--devices", "2"], "item 3"),
-                       (["--follow-ledger"], "item 5"),
-                       (["--drain-state", "x.json"], "item 5")):
-        with pytest.raises(ValueError, match=f"queue 1 {item}"):
+    # --devices N runs; on the card it takes N CUDA devices and raises
+    # when the machine has fewer
+    have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    with pytest.raises(ValueError, match="CUDA devices"):
+        cli.main(["serve", "--devices", str(have + 1)])
+    for argv in (["--follow-ledger"], ["--drain-state", "x.json"]):
+        with pytest.raises(ValueError, match="queue 1 item 5"):
             cli.main(["serve", "--device", "cpu", *argv])
 
 
