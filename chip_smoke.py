@@ -900,7 +900,7 @@ def evolve_phase(dev, card, probe_inputs) -> dict:
             or best["score"] != fs.best[1]:
         raise AssertionError(f"champion files off fks_tpu's schema: "
                              f"{best_path.name} {sorted(best)}")
-    caps, _, replays, ms = graph_report(ev._vm_pop_run.graphs)
+    caps, _, replays, ms = graph_report(*ev._vm_pop_run.graphs)
     out["a"] = report(
         f"(a) FunSearch {len(fs.history)} generations, exact engine, VM "
         f"tier, first {pins['pods']} pods, best {fs.best[1]:.12f}; stats, "
@@ -943,7 +943,7 @@ def evolve_phase(dev, card, probe_inputs) -> dict:
                              f"survivor (rung {rung.get(bfs.best[0])})")
     rungs = rec.spans("budget_rung")
     caps, _, replays, ms = graph_report(
-        bev._vm_pop_run.graphs, bev._budget_eval._probe_run.graphs)
+        *bev._vm_pop_run.graphs, bev._budget_eval._probe_run.graphs)
     out["b"] = report(
         f"(b) budget halving smoke3 -> default8, 1 generation, best "
         f"{bfs.best[1]:.12f} (a full-rung survivor), pruned "
@@ -1331,7 +1331,8 @@ def serve_phase(dev, card) -> dict:
                 for b0 in range(0, count, lanes):
                     batch = [base[(b0 + i) * 3:(b0 + i) * 3 + size]
                              for i in range(lanes)]
-                    graph = eng.compiled_for(lanes, bucket)
+                    # the engine's one shard (no mesh): its graph
+                    graph = eng.compiled_for(lanes, bucket).graphs[0]
                     r0 = graph.chunk.replays
                     t0 = time.perf_counter()
                     ans = eng.answer_batch(batch)
@@ -1368,7 +1369,7 @@ def serve_phase(dev, card) -> dict:
         t0 = time.perf_counter()
         ans = eng.answer_batch([big])[0]
         big_s = time.perf_counter() - t0
-    graph = eng.compiled_for(1, 1024)
+    graph = eng.compiled_for(1, 1024).graphs[0]
     if not np.isfinite(ans["score"]) or ans["scheduled"] <= 0:
         raise AssertionError(f"the 1,024-pod query answered {ans}")
     log(f"[serve] (b) one 1,024-pod query: {big_s:.1f} s with "
@@ -1664,13 +1665,19 @@ def mesh_phase(dev, card, wl, params, ref) -> dict:
     def d():
         got = {}
         for engine, seg in (("exact", "0"), ("flat", "32")):
+            # CodeEvaluator reads its segment length from the environment
+            # (fks_tpu's knob); the caller's value comes back afterwards
+            before = os.environ.get("FKS_VM_SEG_STEPS")
             os.environ["FKS_VM_SEG_STEPS"] = seg
             try:
                 sharded = CodeEvaluator(wl_code, engine=engine, mesh=mesh2)
                 single = CodeEvaluator(wl_code, engine=engine, device=dev)
-                a_, b_ = sharded.evaluate(codes), single.evaluate(codes)
             finally:
-                del os.environ["FKS_VM_SEG_STEPS"]
+                if before is None:
+                    del os.environ["FKS_VM_SEG_STEPS"]
+                else:
+                    os.environ["FKS_VM_SEG_STEPS"] = before
+            a_, b_ = sharded.evaluate(codes), single.evaluate(codes)
             if [r.score for r in a_] != [r.score for r in b_] \
                     or sharded.vm_batch_count != 1 \
                     or any(not torch.equal(x.result.assigned_node,

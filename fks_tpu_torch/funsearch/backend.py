@@ -27,11 +27,12 @@ CUDA graph capture (``torch.cuda.graph``) fails if another thread touches
 the card meanwhile. On the CPU the transpiled tier fans out over a thread
 pool as in fks_tpu. Result order is the input order either way.
 
-With ``mesh=`` (a ``parallel.mesh.Mesh`` of more than one shard) the
-batched tier shards a generation over the mesh
-(``parallel.mesh.make_sharded_code_eval``): each shard interprets its
-chunk of the stacked programs; a failure there raises instead of falling
-back to candidate-by-candidate scoring on one device. The footprint
+The batched tier runs a generation through
+``parallel.mesh.make_sharded_code_eval`` over ``mesh=`` (a
+``parallel.mesh.Mesh``; without one, a one-shard mesh over the
+evaluator's device): each shard interprets its chunk of the stacked
+programs. On a mesh of several shards a failure there raises instead of
+falling back to candidate-by-candidate scoring on one device. The footprint
 ledger of fks_tpu's batched tier waits for ``obs/memory.py`` (ROADMAP
 queue 1 item 6).
 """
@@ -102,19 +103,17 @@ class CodeEvaluator:
                  preflight: bool = True, fp_dedup: bool = True,
                  profiler=None, device=None):
         from fks_tpu_torch.parallel.mesh import (
-            Mesh, lead_device, num_shards,
+            _check_mesh, lead_device, num_shards, population_mesh,
         )
         from fks_tpu_torch.sim import get_engine
 
-        if mesh is not None and not isinstance(mesh, Mesh):
-            raise TypeError(f"mesh must be a parallel.mesh.Mesh, got "
-                            f"{type(mesh).__name__}")
-        # the sharded batched tier: each shard interprets its chunk of a
+        # the batched tier's mesh: each shard interprets its chunk of a
         # stacked generation; the workload lives on the mesh's lead device
         self.mesh = mesh
-        self._n_shards = num_shards(mesh) if mesh is not None else 1
-        self.device = (lead_device(mesh) if mesh is not None
-                       else resolve_device(device))
+        self._mesh = (_check_mesh(mesh) if mesh is not None
+                      else population_mesh([resolve_device(device)]))
+        self._n_shards = num_shards(self._mesh)
+        self.device = lead_device(self._mesh)
         self.workload = workload.to(self.device)
         self.profiler = (profiler if profiler is not None
                          else obs.NULL_PROFILER)
@@ -152,7 +151,6 @@ class CodeEvaluator:
         self.use_vm = use_vm
         self._vm_run = None  # lazily built one-candidate VM runner
         self._vm_pop_run = None  # lazily built population VM runner
-        self._vm_mesh_run = None  # lazily built sharded VM runner
         self._budget_eval = None  # lazily built rung ladder (budget mode)
         self.vm_batch_count = 0  # batched VM launches
         # batched launches that raised, their candidates then scored one
@@ -232,40 +230,41 @@ class CodeEvaluator:
         self.profiler.segment_tick()
 
     def _vm_pop_runner(self):
+        """``run(stacked, real_count) -> SimResult`` of a stacked
+        generation (``run.graphs``: each shard's captured chunks): in
+        suite mode candidates x scenarios ``[C, T]`` from one runner on
+        the evaluator's device (the segmented runner has no trace-batched
+        variant; fks_tpu shards suites at the parametric tier), else the
+        sharded code eval over the evaluator's mesh."""
         if self._vm_pop_run is None:
             if self.suite is not None:
-                # candidates x scenarios [C, T] from one runner; the
-                # segmented runner has no trace-batched variant
                 from fks_tpu_torch.scenarios.robust import make_suite_eval
                 ev = make_suite_eval(self.suite, vm.score_static, self.cfg,
                                      population=True, engine=self.engine,
                                      device=self.device)
 
-                def run(progs, _state0):
+                def run(progs, _real_count):
                     return ev(progs)
 
-                run.graphs = ev.graphs
-                self._vm_pop_run = run
-            elif (self.vm_seg_steps > 0
-                    and hasattr(self._mod, "make_segmented_population_run")):
-                self._vm_pop_run = self._mod.make_segmented_population_run(
-                    self.workload, vm.score_static, self.cfg,
-                    seg_steps=self.vm_seg_steps,
+                run.graphs = [ev.graphs]
+            else:
+                from fks_tpu_torch.parallel.mesh import (
+                    make_sharded_code_eval,
+                )
+                ev = make_sharded_code_eval(
+                    self.workload, self._mesh, cfg=self.cfg, elite_k=1,
+                    engine=self.engine, seg_steps=self.vm_seg_steps,
                     on_segment=self._count_segment,
                     double_buffer=self.vm_double_buffer)
-            else:
-                self._vm_pop_run = self._mod.make_population_run_fn(
-                    self.workload, vm.score_static, self.cfg)
-        return self._vm_pop_run
 
-    def _vm_mesh_runner(self):
-        if self._vm_mesh_run is None:
-            from fks_tpu_torch.parallel.mesh import make_sharded_code_eval
-            self._vm_mesh_run = make_sharded_code_eval(
-                self.workload, self.mesh, cfg=self.cfg, elite_k=1,
-                engine=self.engine, seg_steps=self.vm_seg_steps,
-                on_segment=self._count_segment)
-        return self._vm_mesh_run
+                def run(progs, real_count):
+                    # the elites are dropped: the evolution loop ranks on
+                    # the host
+                    return ev(progs, real_count)[0]
+
+                run.graphs = ev.graphs
+            self._vm_pop_run = run
+        return self._vm_pop_run
 
     def _sharded(self) -> bool:
         """Whether the batched tier shards over the mesh: a mesh of more
@@ -275,7 +274,7 @@ class CodeEvaluator:
 
     def _run_vm_batch(self, progs: List[vm.VMProgram]) -> List[SimResult]:
         """Evaluate stacked VM candidates in ONE launch, sharded over the
-        mesh when one of several shards was passed. The capacity is the
+        evaluator's mesh. The capacity is the
         stack's power-of-two bucket and the lane count the next power of
         two rounded up to the shard count, padded by repeating the last
         program, so a captured graph is reused per bucket, never rebuilt
@@ -286,13 +285,7 @@ class CodeEvaluator:
         stacked = self._to_device(vm.stack_programs(padded))
         with obs.span("vm_batch", candidates=len(progs), lanes=pop,
                       shards=self._n_shards):
-            if self._sharded():
-                # each shard interprets pop/shards lanes; the elites are
-                # dropped here (the evolution loop ranks on the host)
-                result, _, _ = self._vm_mesh_runner()(stacked, len(progs))
-            else:
-                result = self._vm_pop_runner()(stacked, self.state0)
-            result = _host(result)
+            result = _host(self._vm_pop_runner()(stacked, len(progs)))
         with self._lock:
             self.vm_batch_count += 1
             self.vm_count += len(progs)
@@ -309,7 +302,7 @@ class CodeEvaluator:
             self._budget_eval = BudgetedSuiteEval(
                 self.workload, self.cfg, self.budget, self.robust,
                 full_runner=lambda stacked: self._vm_pop_runner()(
-                    stacked, self.state0),
+                    stacked, None),
                 engine=self.engine, n_shards=self._n_shards,
                 segment_counter=lambda: self.segments_dispatched,
                 device=self.device)

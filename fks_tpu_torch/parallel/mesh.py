@@ -54,7 +54,6 @@ from fks_tpu_torch.sim.engine import SimConfig, drain
 from fks_tpu_torch.sim.types import (
     SimResult, as_params, batch_size, map_tensors, tensor_leaves,
 )
-from fks_tpu_torch.utils.segments import segment_budget
 
 POP_AXIS = "pop"
 DCN_AXIS = "dcn"
@@ -469,7 +468,9 @@ class ShardedPopulation:
     local shard, on the shard's device, with graphs of its own (the
     fused engine shares one runner per device: its launch holds no
     state). ``run(params)`` launches every shard before it reads any,
-    and returns the local shards' ``SimResult`` on the lead device."""
+    and returns the local shards' ``SimResult`` on the lead device.
+    ``graphs`` lists each local shard's captured chunks by
+    ``sim.engine.graph_key``."""
 
     def __init__(self, workload: Workload, mesh: Mesh,
                  param_policy: ParamPolicyFn, cfg: SimConfig, engine: str):
@@ -496,6 +497,10 @@ class ShardedPopulation:
                 self.runners.append(mod.make_population_run_fn(
                     wls[dev], param_policy, cfg))
                 self.state0.append(states[dev])
+
+    @property
+    def graphs(self) -> list:
+        return [getattr(run, "graphs", {}) for run in self.runners]
 
     def __call__(self, params) -> SimResult:
         parts = shard_population(params, self.mesh)
@@ -604,19 +609,21 @@ def make_sharded_code_eval(workload: Workload, mesh: Mesh,
                            cfg: SimConfig = SimConfig(),
                            elite_k: int = 8, engine: str = "exact",
                            seg_steps: int = 0, on_segment=None,
-                           layout=None):
+                           layout=None, double_buffer: bool = True):
     """``eval(stacked, real_count=None) -> (result, elite_idx[K],
     elite_scores[K])`` for stacked VM code candidates
     (``vm.stack_programs``; fks_tpu mesh.py:548-626): each shard
     interprets its chunk of the program batch through the population
     engine with ``vm.score_static``, the scores are gathered and ranked.
-    ``result`` is the local shards' ``SimResult``.
+    ``result`` is the local shards' ``SimResult``; ``eval.graphs`` lists
+    each local shard's captured chunks by ``sim.engine.graph_key``.
 
     ``seg_steps > 0`` bounds each dispatch to about ``seg_steps`` events
     (flat engine; engines without a segmented runner take the
-    single-dispatch path); ``on_segment`` fires after every segment.
-    ``layout`` as fks_tpu's: a spec whose ``seg_steps`` disagrees with a
-    nonzero ``seg_steps`` argument raises."""
+    single-dispatch path); ``on_segment`` fires after every segment, and
+    ``double_buffer`` is ``sim.flat.run_segments``'. ``layout`` as
+    fks_tpu's: a spec whose ``seg_steps`` disagrees with a nonzero
+    ``seg_steps`` argument raises."""
     from fks_tpu_torch.funsearch import vm
     from fks_tpu_torch.sim import get_engine
 
@@ -629,7 +636,8 @@ def make_sharded_code_eval(workload: Workload, mesh: Mesh,
     mod = get_engine(engine)
     if seg_steps > 0 and hasattr(mod, "make_segmented_population_run"):
         return _make_segmented_code_eval(workload, mesh, cfg, elite_k, mod,
-                                         seg_steps, on_segment, spec)
+                                         seg_steps, on_segment, spec,
+                                         double_buffer)
     pop = ShardedPopulation(workload, mesh, vm.score_static, cfg, engine)
 
     def sharded_eval(stacked, real_count):
@@ -638,23 +646,24 @@ def make_sharded_code_eval(workload: Workload, mesh: Mesh,
         elite_scores, elite_idx = top_k_real(scores, real_count, elite_k)
         return res, elite_idx, elite_scores
 
-    return _layout_eval(sharded_eval, "code_eval", spec, mesh)
+    run = _layout_eval(sharded_eval, "code_eval", spec, mesh)
+    run.graphs = pop.graphs
+    return run
 
 
 def _make_segmented_code_eval(workload: Workload, mesh: Mesh,
                               cfg: SimConfig, elite_k: int, mod,
-                              seg_steps: int, on_segment, spec):
+                              seg_steps: int, on_segment, spec,
+                              double_buffer: bool):
     """The segmented body of ``make_sharded_code_eval`` (fks_tpu
-    mesh.py:629-731): a host loop of segments; in each, every shard
-    advances its lanes one segment (its own
-    ``make_segmented_population_run``, so its own graphs), and the
-    any-lane-active flags of all shards fold into one. Double-buffered:
-    segment i+1 is dispatched before segment i's flag is read, so the
-    loop runs one no-op segment past the draining one and the budget
-    carries the extra observation slot (slack 2)."""
+    mesh.py:629-731): ``sim.flat.run_segments``' host loop, in which
+    every shard advances its lanes one segment (its own
+    ``make_segmented_population_run``, so its own graphs) and the
+    any-lane-active flags of all shards fold into one."""
     from fks_tpu_torch.funsearch import vm
     from fks_tpu_torch.obs.layout import record_layout, tag_layout
-    from fks_tpu_torch.sim.flat import _observe, _read
+    from fks_tpu_torch.sim.engine import broadcast_state
+    from fks_tpu_torch.sim.flat import run_segments
 
     _check_mesh(mesh)
     shards = _local_shards(mesh)
@@ -670,34 +679,22 @@ def _make_segmented_code_eval(workload: Workload, mesh: Mesh,
     record_layout("code_eval", spec, mesh=mesh)
 
     def run(stacked, real_count=None):
-        from fks_tpu_torch.sim.engine import broadcast_state
-
         parts = shard_population(stacked, mesh)
         pop = batch_size(as_params(stacked))
         real = pop if real_count is None else int(real_count)
         bstates = [broadcast_state(states[d], batch_size(p))
                    for (_, d), p in zip(shards, parts)]
-        active, prev, segments = None, None, 0
-        for _ in range(segment_budget(max_steps, seg_steps, slack=2)):
+
+        def advance_all():
             flags = []
             for k, (r, p) in enumerate(zip(runs, parts)):
                 bstates[k], flag = r.advance(p, bstates[k])
                 flags.append(flag)
-            active = _observe(_any_shard(mesh, flags))
-            segments += 1
-            if on_segment is not None:
-                on_segment()
-            # double-buffered: read the PREVIOUS segment's flag only once
-            # this segment is in flight
-            if prev is not None and not _read(prev):
-                active = prev
-                break
-            prev = active
-        if _read(active):
-            raise RuntimeError(
-                "sharded segmented runner exhausted its segment budget "
-                "with lanes still active — cond/step divergence in the "
-                "population engine")
+            return _any_shard(mesh, flags)
+
+        segments = run_segments(advance_all, max_steps, seg_steps,
+                                on_segment, double_buffer,
+                                "the sharded population engine")
         record_layout("code_eval", spec, mesh=mesh, real_count=real,
                       segments=segments)
         res = _concat([r.finalize_pop(s) for r, s in zip(runs, bstates)],
@@ -708,6 +705,7 @@ def _make_segmented_code_eval(workload: Workload, mesh: Mesh,
         elite_scores, elite_idx = top_k_real(scores, real, elite_k)
         return res, elite_idx, elite_scores
 
+    run.graphs = [r.graphs for r in runs]
     return tag_layout(run, spec.key)
 
 

@@ -32,7 +32,9 @@ import torch
 from fks_tpu_torch.data.entities import Workload
 from fks_tpu_torch.funsearch import vm
 from fks_tpu_torch.parallel.mesh import make_sharded_portfolio_serve_fn
-from fks_tpu_torch.serve.artifact import ChampionSpec, ServeEngine
+from fks_tpu_torch.serve.artifact import (
+    ChampionSpec, ServeEngine, _device_scope,
+)
 from fks_tpu_torch.serve.batcher import (
     pack_portfolio_tables, to_tensor, tree_h2d_bytes,
     unpack_portfolio_tables,
@@ -223,22 +225,22 @@ class PortfolioEngine(VMServeEngine):
     def _stage_params(self, lanes: int, idxs):
         """The chunk's per-lane slots: pad lanes repeat the last real
         lane's slot (the ``pad_population`` rule; their answers are never
-        scattered back). One ``PortfolioParams`` per shard with a mesh."""
+        scattered back). One ``PortfolioParams`` per shard, its slots
+        uploaded on the shard's serving stream."""
         chunk = ([self._batch_slots[i] for i in idxs]
                  if self._batch_slots is not None else [0] * len(idxs))
         for s in chunk:
             self.slot_requests[s] += 1
         padded = np.asarray(chunk + [chunk[-1]] * (lanes - len(chunk)),
                             np.int64)
-        if self._sharding is None:
-            return PortfolioParams(
-                self._graph_program(self.device),
-                torch.from_numpy(padded).to(self.device, non_blocking=True))
-        return [PortfolioParams(self._graph_program(d),
-                                torch.from_numpy(part).to(
-                                    d, non_blocking=True))
-                for part, d in zip(self._sharding.split(padded),
-                                   self._sharding.devices)]
+        out = []
+        for part, d in zip(self._sharding.split(padded),
+                           self._sharding.devices):
+            with _device_scope(d, self._streams):
+                out.append(PortfolioParams(
+                    self._graph_program(d),
+                    torch.from_numpy(part).to(d, non_blocking=True)))
+        return out
 
     def _sharded_serve_fn(self, graphs):
         """``serve_fn(shard, slot_tables, slots, pods, ktable, state0)``:
@@ -249,7 +251,8 @@ class PortfolioEngine(VMServeEngine):
                                      PortfolioParams(tables, slots))
 
         return make_sharded_portfolio_serve_fn(
-            serve_fn, self.mesh, finish=lambda s, _job: graphs[s].harvest())
+            serve_fn, self._sharding.mesh,
+            finish=lambda s, _job: graphs[s].harvest())
 
     def _sharded_args(self, graphs, staging):
         params = [st[3] for st in staging]

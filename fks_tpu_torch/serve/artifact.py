@@ -21,10 +21,11 @@ engine that captures nothing on its warm path:
   graph; the pod tables, the snapshot table and the state are its static
   input buffers, which every batch overwrites in place (the counterpart
   of fks_tpu's donated arguments: steady state allocates nothing per
-  batch). On the CPU the same buffers drive the step eagerly. With a
-  ``mesh`` (``parallel.mesh.Mesh``) lane buckets are per shard: a batch
-  of ``lane bucket x shards`` lanes splits into equal shard slices, each
-  run by its shard's own graph on its shard's device, all launched
+  batch). On the CPU the same buffers drive the step eagerly. Lane
+  buckets are per shard of a mesh (``parallel.mesh.Mesh``; without one,
+  a one-shard mesh over the engine's device): a batch of ``lane bucket
+  x shards`` lanes splits into equal shard slices, each run by its
+  shard's own graph on its shard's device and stream, all launched
   before any is read (``parallel.mesh.make_sharded_serve_fn``).
 
 ``enable_persistent_cache`` has no counterpart: PyTorch keeps no cache of
@@ -57,8 +58,7 @@ from fks_tpu_torch.obs.memory import (
     FOOTPRINT_KEYS, capture_footprint, record_footprint,
 )
 from fks_tpu_torch.parallel.mesh import (
-    _check_mesh, make_sharded_serve_fn, num_shards, serve_lane_count,
-    serve_sharding,
+    _check_mesh, make_sharded_serve_fn, population_mesh, serve_sharding,
 )
 from fks_tpu_torch.parallel.population import occupancy_stats
 from fks_tpu_torch.serve.batcher import (
@@ -68,7 +68,7 @@ from fks_tpu_torch.serve.batcher import (
 )
 from fks_tpu_torch.sim import get_engine
 from fks_tpu_torch.sim.engine import (
-    GraphedChunk, LaneJob, SimConfig, bind_step, copy_state_, drain,
+    GraphedChunk, LaneJob, SimConfig, bind_step, copy_state_,
     graph_key, resolve_auto_prefilter, static_work_hint, zip_tensors,
 )
 from fks_tpu_torch.sim.evaluator import max_snapshot_count
@@ -322,9 +322,10 @@ def _device_scope(device, streams):
 
 
 class _Graph:
-    """One (lanes, pod bucket) program of a serve engine (or of one shard
-    of a mesh-sharded engine) on ``device``: the buffers its step reads
-    and, on CUDA, the captured graph that replays the step.
+    """One shard's part of a (lanes, pod bucket) program of a serve
+    engine, on ``device``: the buffers its step reads and, on CUDA, the
+    captured graph that replays the step. Its work runs on the engine's
+    stream for ``device`` (``_device_scope``).
 
     Static inputs, rewritten for every batch: ``pods`` (a PodArrays of
     ``[lanes, P]`` tensors, read by ``finalize``), ``rows`` (the step's
@@ -337,6 +338,7 @@ class _Graph:
     def __init__(self, eng: "ServeEngine", lanes: int, bucket: int,
                  params, example, device):
         dev = self.device = device
+        self.streams, self.lead = eng._streams, eng.device
         mod = eng._mod
         self.lanes, self.bucket = lanes, bucket
         self.cfg = cfg = eng.bucket_config(bucket)
@@ -407,25 +409,22 @@ class _Graph:
         return self.job
 
     def harvest(self):
-        """The drained batch's results, copied out of the graph's
-        buffers."""
-        res = self.mod.finalize(self.wl, self.cfg, self.job.state,
-                                lane_trace=self.lane_trace)
-        return map_tensors(torch.clone, res)
-
-    def finish(self):
-        """Drive the batch to the end and finalize it."""
-        drain([self.job])
-        return self.harvest()
+        """The drained batch's results, copied out of the graph's buffers
+        onto the engine's device, on this shard's stream."""
+        with _device_scope(self.device, self.streams):
+            res = self.mod.finalize(self.wl, self.cfg, self.job.state,
+                                    lane_trace=self.lane_trace)
+            return map_tensors(lambda x: x.to(self.lead, copy=True), res)
 
 
 class _MeshGraph:
-    """One (global lanes, pod bucket) program of a mesh-sharded serve
-    engine: a ``_Graph`` of ``lanes / shards`` lanes per shard, on the
-    shard's device, run through the engine's sharded serve function
-    (``parallel.mesh.make_sharded_*_serve_fn``): every shard's batch is
-    started before any is read, the shards drain together, and their
-    results join on the lead device."""
+    """One (global lanes, pod bucket) program of a serve engine: a
+    ``_Graph`` of ``lanes / shards`` lanes per shard of the engine's
+    mesh, on the shard's device, run through the engine's sharded serve
+    function (``parallel.mesh.make_sharded_*_serve_fn``): every shard's
+    batch is started before any is read, the shards drain together (each
+    ``LaneJob`` on the stream it was started on), and their results join
+    on the lead device."""
 
     def __init__(self, eng: "ServeEngine", lanes: int, bucket: int,
                  example):
@@ -473,7 +472,7 @@ class _Inflight(NamedTuple):
     """One dispatched-but-unharvested chunk of the double-buffered
     answer pipeline."""
 
-    graph: _Graph
+    graph: _MeshGraph
     idxs: List[int]     # answer slots, in lane order
     bucket: int
     lanes: int
@@ -483,8 +482,8 @@ class _Inflight(NamedTuple):
 class ServeEngine:
     """A pinned (champion, cluster, envelope) triple ready for serving.
 
-    One graph per (lane_bucket, pod_bucket) combination (``_Graph``),
-    built on demand or eagerly via ``warmup`` and kept for the engine's
+    One program per (lane_bucket, pod_bucket) combination
+    (``_MeshGraph``, a graph per shard), built on demand or eagerly via ``warmup`` and kept for the engine's
     lifetime; on CUDA it is a captured CUDA graph of the batched step.
     Graphs are keyed by the pod bucket and ``sim.engine.graph_key`` (lane
     count and the params' tensor shapes), so params of another shape never
@@ -507,7 +506,10 @@ class ServeEngine:
     of this process) shards the lane axis: lane buckets are per shard,
     each (global lanes, pod bucket) program holds one graph per shard on
     the shard's device, and the engine's device is the mesh's lead
-    device."""
+    device. Without a mesh the engine runs a one-shard mesh over
+    ``device``. Each device's work runs on a stream of the engine's own
+    (``_streams``), whichever thread drives it and whatever stream is
+    current there."""
 
     #: how this engine binds the champion: "aot" makes the policy a
     #: constant of every graph (a new champion = new graphs); "vm"
@@ -532,18 +534,20 @@ class ServeEngine:
             raise ValueError(
                 "the fused kernel evaluates parametric populations only; "
                 "serve champions on 'exact' (parity default) or 'flat'")
-        # mesh-wide serving: the lane axis split over the mesh's shards
+        # the lane axis split over the mesh's shards (``mesh`` stays what
+        # the caller passed, for the ledgers)
         self.mesh = mesh
-        self._sharding = serve_sharding(mesh) if mesh is not None else None
-        self._shards = num_shards(mesh) if mesh is not None else 1
-        if self._sharding is not None:
+        if mesh is not None:
+            self._sharding = serve_sharding(mesh)
             if device is not None and \
                     torch.device(device).type != self._sharding.lead.type:
                 raise ValueError(f"device={device!r} disagrees with the "
                                  f"mesh's {self._sharding.lead}")
-            self.device = self._sharding.lead
         else:
-            self.device = resolve_device(device)
+            self._sharding = serve_sharding(
+                population_mesh([resolve_device(device)]))
+        self._shards = self._sharding.shards
+        self.device = self._sharding.lead
         self.champion = champion
         self.cluster = workload.cluster.to(self.device)
         self._cluster_host = workload.cluster.to("cpu")
@@ -561,10 +565,8 @@ class ServeEngine:
         # every batch of this engine runs on one stream per device,
         # whichever thread drives it (the caller's, or the service's
         # batcher thread)
-        devices = (self._sharding.devices if self._sharding is not None
-                   else [self.device])
-        self._streams = {d: torch.cuda.Stream(d) for d in devices
-                         if d.type == "cuda"}
+        self._streams = {d: torch.cuda.Stream(d)
+                         for d in self._sharding.devices if d.type == "cuda"}
         # device-resident snapshot tables: content-hash -> (buffer, bytes)
         self._ktable_cache: "OrderedDict[Tuple, Tuple[Any, int]]" = \
             OrderedDict()
@@ -647,8 +649,8 @@ class ServeEngine:
         return self.param_policy
 
     def _stage_params(self, lanes: int, idxs):
-        """Per-batch params to copy into a graph with the batch (one per
-        shard with a mesh): none for this engine."""
+        """Per-batch params to copy into the graphs with the batch (a list
+        of one per shard): none for this engine."""
         return None
 
     def _sharded_serve_fn(self, graphs):
@@ -658,7 +660,8 @@ class ServeEngine:
             return self._start_shard(graphs[s], pods, kt, state, None)
 
         return make_sharded_serve_fn(
-            serve_fn, self.mesh, finish=lambda s, _job: graphs[s].harvest())
+            serve_fn, self._sharding.mesh,
+            finish=lambda s, _job: graphs[s].harvest())
 
     def _sharded_args(self, graphs, staging):
         """A staged ``_MeshGraph`` batch as the sharded serve function's
@@ -696,9 +699,9 @@ class ServeEngine:
         return _device_scope(self.device, self._streams)
 
     def compiled_for(self, lanes: int, pod_bucket: int):
-        """The (global lanes, pod_bucket) program, built (captured on
-        CUDA) on first use; later calls replay it. Without a mesh it is
-        one ``_Graph``, with one a ``_MeshGraph`` of a graph per shard."""
+        """The (global lanes, pod_bucket) program, a ``_MeshGraph`` of a
+        graph per shard, built (captured on CUDA) on first use; later
+        calls replay it."""
         per = lanes // self._shards
         key = (pod_bucket,) + graph_key(
             lanes, self._graph_params(self.device, per))
@@ -709,14 +712,8 @@ class ServeEngine:
                 self.profiler.stage("compile", lanes=lanes, pods=pod_bucket), \
                 obs.span("serve_compile", lanes=lanes, pods=pod_bucket,
                          engine=self.engine_name):
-            example = self._example_batch(lanes, pod_bucket)
-            if self._sharding is not None:
-                graph = _MeshGraph(self, lanes, pod_bucket, example)
-            else:
-                graph = _Graph(self, lanes, pod_bucket,
-                               self._graph_constant(
-                                   self._graph_params(self.device, lanes)),
-                               example, self.device)
+            graph = _MeshGraph(self, lanes, pod_bucket,
+                               self._example_batch(lanes, pod_bucket))
         self._graphs[key] = graph
         self.cold_compiles += 1
         # footprint ledger: every ladder rung's device claim (None, so no
@@ -745,7 +742,7 @@ class ServeEngine:
         with self.profiler.stage("warmup"):
             for lb in lane_buckets or self.envelope.lane_buckets():
                 for pb in pod_buckets or self.envelope.pod_buckets():
-                    self.compiled_for(serve_lane_count(lb, self.mesh), pb)
+                    self.compiled_for(lb * self._shards, pb)
         return len(self._graphs)
 
     # ----- answering
@@ -754,8 +751,7 @@ class ServeEngine:
         """Global lane count for an n-query chunk: the smallest envelope
         lane bucket covering the per-shard share, times the shards."""
         per_shard = -(-int(n_queries) // self._shards)
-        return serve_lane_count(self.envelope.lanes_for(max(1, per_shard)),
-                                self.mesh)
+        return self.envelope.lanes_for(max(1, per_shard)) * self._shards
 
     def snapshot_cache_stats(self) -> dict:
         """Device-resident snapshot-table cache counters plus the H2D
@@ -779,8 +775,8 @@ class ServeEngine:
         return int(self._ktable_cache_bytes)
 
     def _ktable_for(self, lanes: int, bucket: int, kt: np.ndarray):
-        """The device-resident snapshot-table buffer for this batch (with
-        a mesh, one per shard, each on its shard's device): content-hash
+        """The device-resident snapshot-table buffers for this batch (one
+        per shard, each on its shard's device and stream): content-hash
         cache keyed on the (packed) table bytes at the dispatch shape.
         Consecutive batches whose queries share pod counts hash
         identically and re-use the resident buffer, shipping zero
@@ -794,11 +790,10 @@ class ServeEngine:
             return hit[0]
         self.snapshot_cache_misses += 1
         padded = _pad_rows(kt, lanes)
-        if self._sharding is not None:
-            dev = [to_tensor(k).to(d, non_blocking=True) for k, d in
-                   zip(self._sharding.split(padded), self._sharding.devices)]
-        else:
-            dev = to_tensor(padded).to(self.device, non_blocking=True)
+        dev = []
+        for k, d in zip(self._sharding.split(padded), self._sharding.devices):
+            with _device_scope(d, self._streams):
+                dev.append(to_tensor(k).to(d, non_blocking=True))
         nbytes = int(padded.nbytes)
         self.h2d_bytes_total += nbytes
         self._ktable_cache[key] = (dev, nbytes)
@@ -847,7 +842,7 @@ class ServeEngine:
     def _dispatch_chunk(self, bucket: int, idxs: List[int],
                         pod_lists) -> _Inflight:
         """Stack + pack + upload one chunk into its graph's staging
-        buffers; ``_Graph.start`` then loads and queues it."""
+        buffers; ``_MeshGraph.start`` then loads and queues it."""
         t0 = time.perf_counter()
         lanes = self._global_lanes(len(idxs))
         pods, kt, s0 = self._stage_batch([pod_lists[i] for i in idxs],

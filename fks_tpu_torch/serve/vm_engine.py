@@ -38,7 +38,9 @@ import torch
 from fks_tpu_torch.data.entities import Workload
 from fks_tpu_torch.funsearch import vm
 from fks_tpu_torch.parallel.mesh import make_sharded_vm_serve_fn
-from fks_tpu_torch.serve.artifact import ChampionSpec, ServeEngine
+from fks_tpu_torch.serve.artifact import (
+    ChampionSpec, ServeEngine, _device_scope,
+)
 from fks_tpu_torch.serve.batcher import (
     pack_program_tables, to_tensor, tree_h2d_bytes, unpack_program_tables,
 )
@@ -213,12 +215,13 @@ class VMServeEngine(ServeEngine):
     def _hold_program(self) -> None:
         """Copy this engine's tables into its capacity's graph buffers on
         every device unless they hold them already (call under
-        ``_swap_lock``)."""
+        ``_swap_lock``); each copy runs on its device's serving stream,
+        where the graphs read the buffers."""
         for key, (tables, _) in self._graph_tables.items():
             if key[0] != self.program_capacity \
                     or self._graph_holds.get(key) is self._prog_dev:
                 continue
-            with self._device_scope():
+            with _device_scope(key[1], self._streams):
                 for dst, src in zip(tables, self._prog_dev):
                     dst.copy_(src)
             self._graph_holds[key] = self._prog_dev
@@ -295,7 +298,8 @@ class VMServeEngine(ServeEngine):
             return self._start_shard(graphs[s], pods, kt, state, program)
 
         return make_sharded_vm_serve_fn(
-            serve_fn, self.mesh, finish=lambda s, _job: graphs[s].harvest())
+            serve_fn, self._sharding.mesh,
+            finish=lambda s, _job: graphs[s].harvest())
 
     def _sharded_args(self, graphs, staging):
         return ([self._graph_program(g.device) for g in graphs],) + \

@@ -51,7 +51,9 @@ fks_tpu, changes no result: the policy runs on every step.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import gc
 from typing import Any, Callable, Optional, Sequence
 
 import numpy as np
@@ -542,6 +544,28 @@ def bind_step(build_step_fn, workload: Workload, param_policy, params,
     return step
 
 
+@contextlib.contextmanager
+def capture(graph, stream, label: str):
+    """Capture CUDA work into ``graph`` on ``stream`` (a stream of the
+    card the work runs on: ``torch.cuda.graph``'s default capture stream
+    belongs to whichever card was current at the process's first capture,
+    and a capture on another card's stream records none of this card's
+    work), counted by ``obs.telemetry.graph_capture`` under ``label``.
+    Python's garbage collector pauses meanwhile (``torch.cuda.graph``
+    collects once before it begins): a collection during the capture can
+    free an older graph, and destroying a graph invalidates a capture in
+    progress."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        with telemetry.graph_capture(label), \
+                torch.cuda.graph(graph, stream=stream):
+            yield
+    finally:
+        if enabled:
+            gc.enable()
+
+
 class GraphedChunk:
     """``graph_steps(step)`` steps of a self-masking step on a fixed state,
     captured once in a CUDA graph and replayed.
@@ -549,9 +573,10 @@ class GraphedChunk:
     The state's tensors are the graph's inputs and outputs: a chunk runs
     the steps, then copies the last step's state into ``state`` (tensors
     the step updates in place are already there). Construction runs one
-    chunk eagerly on a side stream (the warm-up, which advances ``state``
-    like any chunk), then captures. A capture that fails raises; there is
-    no eager fallback."""
+    chunk eagerly on a side stream of the state's card (the warm-up,
+    which advances ``state`` like any chunk), then captures on that same
+    stream (``capture``). A capture that fails raises; there is no eager
+    fallback."""
 
     def __init__(self, step, state, max_steps: int, active_fn=None):
         # the graph reads the device memory of every tensor the step closes
@@ -573,8 +598,7 @@ class GraphedChunk:
                 run_chunk(step, state, steps)
             torch.cuda.current_stream(dev).wait_stream(side)
             self.graph = torch.cuda.CUDAGraph()
-            with telemetry.graph_capture("chunk"), \
-                    torch.cuda.graph(self.graph):
+            with capture(self.graph, side, "chunk"):
                 run_chunk(step, state, steps)
 
     def replay(self) -> None:
@@ -605,7 +629,18 @@ class LaneJob:
     """A stack of self-masking lanes on their way to the end, advanced by
     ``drain``: through its ``GraphedChunk`` (one replay per advance) when
     it has one, else ``SYNC_EVERY`` eager steps per advance, as
-    ``run_batched_lanes`` drives them."""
+    ``run_batched_lanes`` drives them.
+
+    On CUDA the job keeps the device and stream that were current when
+    it was made: its flag reads and its advances run there, whichever
+    stream is current when ``drain`` runs, so the work of a job started
+    on a serving stream stays ordered on that stream.
+
+    Every active lane steps its ``steps`` counter and stops at
+    ``max_steps``, so ``ceil(max_steps / steps per advance)`` advances
+    drain any job; a job still active after them raises instead of
+    spinning (a replay that steps nothing, or a step and predicate that
+    diverged)."""
 
     def __init__(self, step, state, max_steps: int, active_fn=None,
                  chunk: Optional[GraphedChunk] = None):
@@ -614,17 +649,44 @@ class LaneJob:
         self.max_steps = max_steps
         self.active_fn = lane_active if active_fn is None else active_fn
         self.chunk = chunk
+        per = chunk.steps if chunk is not None else SYNC_EVERY
+        self.budget = -(-max_steps // per)
+        self.advances = 0
+        dev = next(_tensor_leaves(self.state)).device
+        self.stream = (torch.cuda.current_stream(dev)
+                       if dev.type == "cuda" else None)
+
+    def scope(self):
+        """The job's device and stream (nothing on the CPU)."""
+        stack = contextlib.ExitStack()
+        if self.stream is not None:
+            stack.enter_context(torch.cuda.device(self.stream.device))
+            stack.enter_context(torch.cuda.stream(self.stream))
+        return stack
 
     def active(self) -> torch.Tensor:
         """Whether any lane is still active (a device bool, unread)."""
-        return self.active_fn(self.state, self.max_steps).any()
+        with self.scope():
+            return self.active_fn(self.state, self.max_steps).any()
+
+    def read(self, flag: torch.Tensor) -> bool:
+        """Read a flag of ``active`` on the job's stream."""
+        with self.scope():
+            return bool(flag)
 
     def advance(self) -> None:
-        if self.chunk is not None:
-            self.chunk.replay()
-            return
-        for _ in range(SYNC_EVERY):
-            self.state = self.step(self.state)
+        if self.advances >= self.budget:
+            raise RuntimeError(
+                f"lanes still active after {self.advances} advances, "
+                f"{self.max_steps} steps: the replay steps nothing or the "
+                "step and its predicate diverged")
+        self.advances += 1
+        with self.scope():
+            if self.chunk is not None:
+                self.chunk.replay()
+                return
+            for _ in range(SYNC_EVERY):
+                self.state = self.step(self.state)
 
 
 def drain(jobs: Sequence[LaneJob]) -> None:
@@ -635,7 +697,7 @@ def drain(jobs: Sequence[LaneJob]) -> None:
     live = list(jobs)
     while live:
         flags = [job.active() for job in live]
-        live = [job for job, flag in zip(live, flags) if bool(flag)]
+        live = [job for job, flag in zip(live, flags) if job.read(flag)]
         for job in live:
             job.advance()
 
@@ -1126,7 +1188,7 @@ def probe_policy_cost(param_policy, params, n_padded: int, g_padded: int,
         param_policy(params, pod, nodes)  # warm-up before the capture
     torch.cuda.current_stream(dev).wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with telemetry.graph_capture("probe"), torch.cuda.graph(graph):
+    with capture(graph, side, "probe"):
         param_policy(params, pod, nodes)
     graph.replay()  # the first replay uploads the graph: untimed
     marks = [(torch.cuda.Event(enable_timing=True),

@@ -649,30 +649,16 @@ def make_segmented_population_run(workload: Workload, param_policy,
         return finalize(workload, cfg, state)
 
     def run(params, state0: FlatState) -> SimResult:
-        state = broadcast_state(state0, batch_size(params))
-        pending = []  # observed segment flags not yet read
-        # the double-buffered loop reads a flag that lags one segment, so
-        # it needs one more observation segment in the budget
-        for _ in range(segment_budget(max_steps, seg_steps,
-                                      slack=2 if double_buffer else 1)):
-            state, flag = advance(params, state)
-            if on_segment is not None:
-                on_segment()
-            pending.append(_observe(flag))
-            # double buffered: read segment i's flag once i+1 is enqueued
-            if len(pending) == (2 if double_buffer else 1) \
-                    and not _read(pending.pop(0)):
-                break
-        else:  # budget spent: the newest segment's flag decides
-            if _read(pending[-1]):
-                # the budget is exact for lockstep lanes: reaching it
-                # with a live lane means the step and predicate diverged
-                raise RuntimeError(
-                    "segmented runner exhausted its segment budget with "
-                    "lanes still active — cond/step divergence in the "
-                    "flat engine")
-        res = finalize_pop(state)
-        return map_tensors(torch.clone, res) if state.ev_time.is_cuda \
+        states = [broadcast_state(state0, batch_size(params))]
+
+        def advance_all():
+            states[0], flag = advance(params, states[0])
+            return flag
+
+        run_segments(advance_all, max_steps, seg_steps, on_segment,
+                     double_buffer, "the flat engine")
+        res = finalize_pop(states[0])
+        return map_tensors(torch.clone, res) if states[0].ev_time.is_cuda \
             else res
 
     run.advance = advance
@@ -680,6 +666,40 @@ def make_segmented_population_run(workload: Workload, param_policy,
     run.seg_steps = seg_steps
     run.graphs = graphs
     return run
+
+
+def run_segments(advance, max_steps: int, seg_steps: int, on_segment=None,
+                 double_buffer: bool = True, what: str = "the flat engine"
+                 ) -> int:
+    """The host loop of a segmented run: ``advance()`` moves the lanes
+    one segment on and returns the device flag "any lane still active"
+    (one population, or every shard of a mesh folded into one flag).
+    Double-buffered, segment i+1 is enqueued before segment i's flag is
+    read, so the loop runs one no-op segment past the draining one and
+    the budget (``segment_budget``) carries one more observation segment
+    (slack 2). ``on_segment`` fires after every enqueued segment.
+    Reaching the budget with a lane still active raises RuntimeError.
+    Returns the number of segments run."""
+    pending = []  # observed segment flags not yet read
+    segments = 0
+    for _ in range(segment_budget(max_steps, seg_steps,
+                                  slack=2 if double_buffer else 1)):
+        pending.append(_observe(advance()))
+        segments += 1
+        if on_segment is not None:
+            on_segment()
+        # double buffered: read segment i's flag once i+1 is enqueued
+        if len(pending) == (2 if double_buffer else 1) \
+                and not _read(pending.pop(0)):
+            return segments
+    # budget spent: the newest segment's flag decides; the budget is
+    # exact for lockstep lanes, so a live lane means the step and the
+    # predicate diverged
+    if _read(pending[-1]):
+        raise RuntimeError(
+            "segmented runner exhausted its segment budget with lanes "
+            f"still active — cond/step divergence in {what}")
+    return segments
 
 
 def _observe(flag: torch.Tensor):

@@ -13,7 +13,10 @@ code-candidate tier (the funsearch VM against the transpiled policy), the
 large-cluster tier (the prefilter, packed state, the segmented runner),
 the code evaluator's graph per capacity bucket and the graph-timed
 auto-prefilter probe are held here too, with the parametric score
-kernel (csrc/param_score.cu) and the serve engines on the card.
+kernel (csrc/param_score.cu) and the serve engines on the card. The
+mesh cases run on logical shards of one card; serving across several
+cards (every replay on its card's serving stream) needs two or more and
+skips with fewer.
 """
 import gc
 import json
@@ -292,7 +295,8 @@ def test_code_evaluator_captures_a_graph_per_capacity_bucket(cuda):
         # the second pass copies into the captured graphs and replays
         assert [r.score for r in card.evaluate(codes)] == want
         assert card.last_eval_stats["vm_batch_lanes"] == len(codes)
-    caps = sorted(key[1][0][-1] for key in card._vm_pop_run.graphs)
+    caps = sorted(key[1][0][-1] for graphs in card._vm_pop_run.graphs
+                  for key in graphs)
     assert caps == [256, 512] and card.vm_batch_fallbacks == 0
     assert card.vm_batch_count == 4
     for code in (batches[0][0], batches[1][0]):
@@ -530,3 +534,145 @@ def test_portfolio_on_card_selftest_and_swap(cuda):
         eng.swap_slot(1, old)
     assert w.backend_compile_count == 0
     assert swapped == eng.answer_batch(queries, slots=[2] * 4)
+
+
+def _replay_streams(monkeypatch):
+    """Record the current stream of each ``GraphedChunk`` replay's device
+    as (device, stream) pairs."""
+    seen = []
+    real = engine.GraphedChunk.replay
+
+    def spy(chunk):
+        seen.append((chunk.device, torch.cuda.current_stream(chunk.device)))
+        real(chunk)
+
+    monkeypatch.setattr(engine.GraphedChunk, "replay", spy)
+    return seen
+
+
+def test_lane_jobs_stay_on_the_stream_they_were_started_on(cuda,
+                                                           monkeypatch):
+    """A population job started on one stream and drained while another
+    stream is current replays (and reads its flags) on its own stream,
+    and ends in the state of a job run on the default stream."""
+    wl = roomy_workload().to(cuda)
+    cfg = SimConfig(track_ctime=False)
+    run = engine.make_population_run_fn(wl, parametric.score, cfg)
+    state0 = engine.initial_state(wl, cfg)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(5)
+    pop = parametric.init_population(gen, 4, noise=0.3)
+    want = run(pop, state0)
+    seen = _replay_streams(monkeypatch)
+    own, foreign = torch.cuda.Stream(cuda), torch.cuda.Stream(cuda)
+    with torch.cuda.stream(own):
+        job = run.start(pop, state0)
+    with torch.cuda.stream(foreign):
+        engine.drain([job])
+    with torch.cuda.stream(own):
+        got = run.finish(job)
+    torch.cuda.synchronize()
+    assert seen and all(stream == own for _, stream in seen)
+    assert_result_matches(got, result_fields(want), rtol=0, atol=0)
+
+
+def test_serve_batches_replay_on_the_engines_streams(cuda, monkeypatch):
+    """``answer_batch`` called while a foreign stream is current runs
+    every replay of a sharded engine (2 logical shards) on the engine's
+    stream for that device, and answers as on the default stream."""
+    from fks_tpu_torch.parallel import population_mesh
+    from fks_tpu_torch.serve import ServeEngine
+
+    champ, wl, env = _serve_setup(cuda)
+    eng = ServeEngine(champ, wl, envelope=env,
+                      mesh=population_mesh([cuda] * 2))
+    queries = _serve_queries()
+    want = eng.answer_batch(queries)
+    seen = _replay_streams(monkeypatch)
+    with torch.cuda.stream(torch.cuda.Stream(cuda)):
+        got = eng.answer_batch(queries)
+    assert seen and all(stream == eng._streams[dev] for dev, stream in seen)
+    assert got == want
+
+
+def test_serving_across_cards_matches_one_card(cuda, monkeypatch):
+    """On a mesh of every card, with a foreign stream current on each,
+    the AOT, VM and portfolio engines replay on each card's engine stream
+    and answer as one card does, before and after a swap."""
+    import contextlib
+
+    from fks_tpu_torch.funsearch import template
+    from fks_tpu_torch.parallel import population_mesh
+    from fks_tpu_torch.parallel.mesh import cuda_devices
+    from fks_tpu_torch.portfolio import PortfolioEngine
+    from fks_tpu_torch.serve import ChampionSpec, ServeEngine, VMServeEngine
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA cards")
+    cards = cuda_devices()
+    mesh = population_mesh(cards)
+    champ, wl, env = _serve_setup(cuda)
+    other = ChampionSpec(code=template.fill_template(
+        "score = 2000 + (node.memory_mib_left - pod.memory_mib) // 1000"))
+    queries = _serve_queries() * 2
+    seen = _replay_streams(monkeypatch)
+
+    def foreign():
+        stack = contextlib.ExitStack()
+        for d in cards:
+            stack.enter_context(torch.cuda.stream(torch.cuda.Stream(d)))
+        return stack
+
+    def held(eng, one, **kw):
+        seen.clear()
+        with foreign():
+            got = eng.answer_batch(queries, **kw)
+        assert {dev for dev, _ in seen} == set(cards)
+        assert all(stream == eng._streams[dev] for dev, stream in seen)
+        assert got == [dict(a, bucket_lanes=b["bucket_lanes"])
+                       for a, b in zip(one.answer_batch(queries, **kw), got)]
+
+    for cls in (ServeEngine, VMServeEngine):
+        held(cls(champ, wl, envelope=env, mesh=mesh),
+             cls(champ, wl, envelope=env, device=cuda))
+    many = VMServeEngine(champ, wl, envelope=env, mesh=mesh)
+    one = VMServeEngine(champ, wl, envelope=env, device=cuda)
+    for eng in (many, one):
+        eng.answer_batch(queries)
+        eng.swap_program(other)
+    held(many, one)
+    champs = [champ, other, ChampionSpec(code=template.fill_template(
+        "score = pod.cpu_milli - node.cpu_milli_left"))]
+    many = PortfolioEngine(champs, wl, envelope=env, n_slots=4, mesh=mesh)
+    one = PortfolioEngine(champs, wl, envelope=env, n_slots=4, device=cuda)
+    slots = [i % 3 for i in range(len(queries))]
+    held(many, one, slots=slots)
+    for eng in (many, one):
+        eng.swap_slot(1, champs[2])
+    held(many, one, slots=slots)
+
+
+def test_sharded_eval_across_cards_matches_one_card(cuda):
+    """``make_sharded_eval`` (exact engine) on a mesh of every card
+    captures each shard's graph on its own card and gives the one-card
+    eval's every field."""
+    from fks_tpu_torch.parallel import (
+        make_sharded_eval, pad_population, population_mesh,
+    )
+    from fks_tpu_torch.parallel.mesh import cuda_devices
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA cards")
+    wl, cfg = roomy_workload(), SimConfig(track_ctime=False)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(3)
+    pop, real = pad_population(parametric.init_population(gen, 10,
+                                                          noise=0.4),
+                               torch.cuda.device_count())
+    want = make_population_eval(wl, cfg=cfg, device=cuda)(pop)
+    ev = make_sharded_eval(wl, population_mesh(cuda_devices()), cfg=cfg,
+                           elite_k=3)
+    scores, _, _ = ev(pop, real)
+    assert torch.equal(scores, want.policy_score)
+    assert_result_matches(ev.results(pop), result_fields(want), rtol=0,
+                          atol=0)

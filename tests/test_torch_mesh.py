@@ -323,6 +323,67 @@ def test_sharded_code_eval_matches_fks_tpu(micro, seg_steps):
     assert bool((idx < real).all())
 
 
+@pytest.mark.parametrize("double_buffer", [True, False])
+def test_segment_loop_is_shared_by_flat_and_the_mesh(micro, double_buffer):
+    """Flat's segmented runner and the sharded segmented code eval run one
+    segment loop (``sim.flat.run_segments``): on 1 and 4 shards the code
+    eval gives the unsegmented scores and dispatches as many segments as
+    flat's runner, double-buffered or not."""
+    from fks_tpu_torch.sim import flat
+
+    _, wl = micro
+    _, progs = _corpus(4, wl.cluster)
+    stacked = vm.stack_programs(progs)
+    cfg = SimConfig(score_dtype=torch.float64)
+    state0 = flat.initial_state(wl, cfg)
+    want = flat.make_population_run_fn(wl, vm.score_static, cfg)(
+        stacked, state0).policy_score
+    ticks = []
+    run = flat.make_segmented_population_run(
+        wl, vm.score_static, cfg, seg_steps=3,
+        on_segment=lambda: ticks.append("flat"),
+        double_buffer=double_buffer)
+    assert torch.equal(run(stacked, state0).policy_score, want)
+    segments = len(ticks)
+    # double-buffered, the loop runs one segment past the draining one
+    assert segments >= (2 if double_buffer else 1)
+    for shards in (1, 4):
+        ticks.clear()
+        ev = make_sharded_code_eval(
+            wl, population_mesh(["cpu"] * shards), cfg=cfg, engine="flat",
+            seg_steps=3, on_segment=lambda: ticks.append(shards),
+            double_buffer=double_buffer)
+        res, _, _ = ev(stacked)
+        assert torch.equal(res.policy_score, want)
+        assert len(ticks) == segments
+
+
+def test_without_a_mesh_one_shard_runs_the_same_path(serve_pair, micro):
+    """``ServeEngine`` and ``CodeEvaluator`` without a mesh run a one-shard
+    mesh over their device: one graph per program, the code eval's
+    graphs per shard, and the same answers as a one-shard mesh passed in."""
+    from fks_tpu_torch.funsearch.backend import CodeEvaluator
+    from fks_tpu_torch.serve import ServeEngine
+
+    plain, _ = serve_pair
+    assert plain.mesh is None and plain._shards == 1
+    queries = [_query(40 + i) for i in range(3)]
+    got = plain.answer_batch(queries)
+    assert all(len(prog.graphs) == 1 for prog in plain._graphs.values())
+    meshed = ServeEngine(plain.champion, synthetic_workload(8, 16, seed=0),
+                         envelope=plain.envelope, engine="flat",
+                         mesh=population_mesh(["cpu"]))
+    assert meshed.answer_batch(queries) == got
+    _, wl = micro
+    codes, _ = _corpus(5, wl.cluster)
+    ev = CodeEvaluator(wl, vm_batch=True, device="cpu")
+    assert ev._n_shards == 1
+    scores = [r.score for r in ev.evaluate(codes)]
+    assert len(ev._vm_pop_run.graphs) == 1 and ev.vm_batch_count == 1
+    one = CodeEvaluator(wl, vm_batch=False, device="cpu")
+    assert scores == [r.score for r in one.evaluate(codes)]
+
+
 def test_code_evaluator_on_a_mesh(micro):
     from fks_tpu_torch.funsearch.backend import CodeEvaluator
 

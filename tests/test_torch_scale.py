@@ -469,6 +469,20 @@ def test_segmented_rejects_zero_and_budget_overrun():
         flat.lane_active = real
 
 
+def test_drain_raises_when_lanes_never_drain():
+    """A job whose advances step nothing (a graph that recorded no work,
+    or a step and predicate that diverged) raises after max_steps / steps
+    per advance advances instead of spinning."""
+    from fks_tpu_torch.sim import engine
+
+    wl = synthetic_workload(4, 16, seed=0)
+    cfg = SimConfig(max_steps=64)
+    job = engine.LaneJob(lambda s: s, engine.initial_state(wl, cfg),
+                         cfg.max_steps)
+    with pytest.raises(RuntimeError, match="still active after 4 advances"):
+        engine.drain([job])
+
+
 def test_prefilter_under_population():
     """A population of identical first_fit lanes scores identically with
     and without the prefilter (and packing), and as fks_tpu's."""
