@@ -129,7 +129,38 @@ Phases (any failure raises and exits non-zero):
    ``make_http_server``: 3 concurrent ``POST /query`` answered in one batch
    equal (a)'s, ``GET /healthz``; (e) ``ParitySentinel.audit_served`` over
    the served answers of (a)-(d): zero alerts;
-13. one ``{"kernels": [...]}`` line, then the last line
+13. the device mesh and the champion portfolio (``parallel.mesh``,
+   ``portfolio``) on 4 logical shards of the one card: the sharded
+   fused, exact, code and suite evals, the generation step and sharded
+   ``ParametricEvolution`` against their unsharded runs, both serve
+   engines and a 4-slot portfolio sharded, and an NCCL group at world
+   size 1 (cases (a)-(h); both kernels launch here);
+14. the control plane (``pipeline``, ``resilience.drain``/``drills``,
+   ``portfolio.fleet``, ``obs.FlightRecorder``; no hand kernel: the
+   champions are code, served as VM programs or the transpiled tier):
+   (a) ``run_drills()`` on the card, all 18 drills ok (any other verdict
+   raises); (b) on the default cluster with the default envelope, the
+   0.5268 champion on a ``VMServeEngine`` behind a ``ServeService``
+   answering phase 12's 4-pod windows, the 0.5365 champion dropped in a
+   ledger directory and promoted by ``PromotionController.poll_once``
+   through the VM fast path with 0 captures on the swap and on 20
+   post-swap queries, then a forced SLO burn (``SLOConfig(p99_ms=1e-6)``)
+   rolled back to the incumbent (its answers equal its pre-promotion
+   ones), and a second controller over the same log recovering the same
+   state; (c) ``DrainCoordinator.drain()`` with 16 queries in flight:
+   every Future completed with the incumbent's answer, nothing shed, the
+   persisted state reloaded and preloaded; (d) ``follow_ledger``
+   promoting the 0.5365 champion through the AOT path (the incumbent on
+   a ``ServeEngine``, envelope 16 pods x 8 lanes) while a client thread
+   queries: no query fails, the shadow's captures happen beside the
+   serving thread and none on the serving path; the client's p50, p99
+   and max query latency by when each query started: before the
+   champion lands, while the shadow is built (its ladder captured and
+   warmed beside serving), while it is replayed (each replayed query
+   holding the incumbent's batch turn) and after the swap.
+   Seconds and captures per case, and both kernels' launches in the
+   phase (0);
+15. one ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the fks_tpu package.
@@ -1873,6 +1904,247 @@ def mesh_phase(dev, card, wl, params, ref) -> dict:
     return out
 
 
+INCUMBENT = (ROOT / "policies" / "discovered"
+             / "funsearch_20260801_023751_score0.5268.json")
+
+
+def control_plane_phase(dev, card) -> dict:
+    """Phase 14 (module docstring): the control plane on the card — the
+    drill matrix, one promotion on the default cluster through the VM
+    fast path with its rollback and recovery, a drain with queries in
+    flight, and ``follow_ledger`` promoting through the AOT path while a
+    client thread queries."""
+    import dataclasses
+    import shutil
+    import tempfile
+    import threading
+
+    import numpy as np
+
+    from fks_tpu_torch.data import TraceParser
+    from fks_tpu_torch.obs.history import SLOConfig
+    from fks_tpu_torch.obs.telemetry import CompileWatcher
+    from fks_tpu_torch.pipeline import (
+        PromotionConfig, PromotionController, follow_ledger, run_drills,
+    )
+    from fks_tpu_torch.resilience import DrainCoordinator, load_serve_state
+    from fks_tpu_torch.serve import (
+        ServeEngine, ServeService, ShapeEnvelope, VMServeEngine,
+        load_champion,
+    )
+
+    t_phase = time.perf_counter()
+    out = {}
+
+    # (a) the drill matrix on the card: every drill must hold
+    t0 = time.perf_counter()
+    drills = run_drills(log=lambda m: log(f"[control] (a) {m[:300]}"),
+                        device=dev)
+    failed = [r for r in drills if not r["ok"]]
+    if len(drills) != 18 or failed:
+        raise AssertionError(f"drills failed on the card: {failed}")
+    out["drills_s"] = time.perf_counter() - t0
+    log(f"[control] (a) {len(drills)} drills ok on the card in "
+        f"{out['drills_s']:.1f} s; card {card}")
+
+    # (b) one promotion on the default cluster: VM fast path, probation
+    # rollback on a forced burn, then recovery from the log alone
+    wl = TraceParser().parse_workload()
+    incumbent = load_champion(str(INCUMBENT))
+    t0 = time.perf_counter()
+    veng = VMServeEngine(incumbent, wl, device=dev)
+    veng.warmup(pod_buckets=[16])
+    windows = [veng.base_pods[i:i + 4] for i in range(8)]
+    service = ServeService(veng, max_wait_s=0.002)
+    tmp = tempfile.TemporaryDirectory()
+    ledger = Path(tmp.name) / "ledger"
+    ledger.mkdir()
+
+    def traffic(svc, n, tag):
+        futs = [svc.submit({"id": f"{tag}{i}", "pods": windows[i % 8]})
+                for i in range(n)]
+        return [f.result(timeout=600) for f in futs]
+
+    before = traffic(service, 8, "pre")
+    shutil.copy(CHAMPION, ledger)
+    ctrl = PromotionController(service, wl, ledger_dir=str(ledger),
+                               config=PromotionConfig(shadow_queries=4))
+    with CompileWatcher() as w:
+        t1 = time.perf_counter()
+        promoted = ctrl.poll_once()
+        poll_s = time.perf_counter() - t1
+        swap_captures = w.backend_compile_count
+        post = traffic(service, 20, "post")
+        post_captures = w.backend_compile_count - swap_captures
+    states = [r["state"] for r in ctrl.log.records]
+    if promoted["action"] != "promoted" or promoted["engine_kind"] != "vm" \
+            or states != ["PENDING", "SHADOW", "PROMOTED"] \
+            or swap_captures or post_captures \
+            or service.engine.champion.score != load_champion(
+                str(CHAMPION)).score:
+        raise AssertionError(f"(b) promotion: {promoted}, states {states},"
+                             f" captures {swap_captures}/{post_captures}")
+    log(f"[control] (b) PROMOTED 0.5268 -> 0.5365 on the VM fast path: "
+        f"poll {poll_s:.2f} s (shadow {promoted['shadow']['shadow_seconds']}"
+        f" s, p99 {promoted['shadow']['p99_ms']} ms vs incumbent "
+        f"{promoted['shadow']['incumbent_p99_ms']} ms), swap "
+        f"{promoted['swap_ms']} ms, {swap_captures} captures on the swap, "
+        f"{post_captures} on 20 post-swap queries")
+    ctrl.cfg = dataclasses.replace(ctrl.cfg, slo=SLOConfig(p99_ms=1e-6))
+    traffic(service, 4, "burn")
+    back = ctrl.check_probation()
+    again = traffic(service, 8, "back")
+    states = [r["state"] for r in ctrl.log.records]
+    if back is None or back["action"] != "rolled_back" \
+            or states[-1] != "ROLLED_BACK" \
+            or service.engine.champion.source != incumbent.source \
+            or any(a["placements"] != b["placements"]
+                   or a["score"] != b["score"]
+                   for a, b in zip(again, before)):
+        raise AssertionError(f"(b) rollback: {back}, states {states}")
+    recovered = PromotionController(
+        service, wl, ledger_dir=str(ledger)).recover()
+    if recovered != ctrl.recover() or recovered["active"] is not None:
+        raise AssertionError(f"(b) recovery {recovered} != "
+                             f"{ctrl.recover()}")
+    out["promotion"] = {"poll_s": poll_s, "swap_ms": promoted["swap_ms"],
+                        "swap_captures": swap_captures,
+                        "post_swap_captures": post_captures,
+                        "post_swap_queries": len(post),
+                        "seconds": time.perf_counter() - t0}
+    log(f"[control] (b) forced burn -> ROLLED_BACK (burn "
+        f"{back['burn']['burn_rate']}x), the incumbent serves again with "
+        f"its pre-promotion answers; a second controller recovers "
+        f"{recovered}; {out['promotion']['seconds']:.1f} s")
+
+    # (c) drain with queries in flight; the state reloads
+    t0 = time.perf_counter()
+    state_path = str(Path(tmp.name) / "serve_state.json")
+    futs = [service.submit({"id": f"d{i}", "pods": windows[i % 8]})
+            for i in range(16)]
+    dc = DrainCoordinator(service, state_path=state_path, grace_s=600.0)
+    report = dc.drain()
+    drain_ms = (time.perf_counter() - t0) * 1e3
+    answers = [f.result(timeout=1) for f in futs]
+    if report["stuck"] or report["shed"] \
+            or any(a["placements"] != before[i % 8]["placements"]
+                   for i, a in enumerate(answers)):
+        raise AssertionError(f"(c) drain: {report}")
+    saved = load_serve_state(state_path)
+    fresh = ServeService(veng, max_wait_s=0.002)
+    preloaded = fresh.preload_replay(saved["replay"])
+    fresh.close()
+    if saved["requests_served"] != service.requests_served \
+            or preloaded != min(64, saved["requests_served"]):
+        raise AssertionError(f"(c) state: {saved['requests_served']} "
+                             f"served, {preloaded} preloaded")
+    out["drain"] = {"drain_ms": drain_ms, "in_flight": len(futs),
+                    "completed": report["completed"],
+                    "pending": report["pending"],
+                    "persisted_replay": len(saved["replay"])}
+    log(f"[control] (c) drain with {len(futs)} queries in flight: "
+        f"{drain_ms:.1f} ms, {report['completed']} completed (pending "
+        f"{report['pending']} at the signal), 0 shed; the state "
+        f"({saved['requests_served']} served) reloads and preloads "
+        f"{preloaded} replay queries")
+
+    # (d) follow_ledger promotes through the AOT path while a client
+    # thread keeps querying: the candidate's ladder is captured on the
+    # poll thread while the batcher thread serves
+    t0 = time.perf_counter()
+    env = ShapeEnvelope(max_pods=16, max_batch=8)
+    aot = ServeEngine(incumbent, wl, envelope=env, device=dev)
+    aot.warmup()
+    service = ServeService(aot, max_wait_s=0.002)
+    ledger2 = Path(tmp.name) / "ledger2"
+    ledger2.mkdir()
+    ctrl = PromotionController(service, wl, ledger_dir=str(ledger2),
+                               config=PromotionConfig(shadow_queries=4))
+    errors, answered, stop = [], [0], threading.Event()
+    sent = []  # (wall-clock start, latency ms) of each answered query
+
+    def client():
+        i = 0
+        while not stop.is_set():
+            t, wall = time.perf_counter(), time.time()
+            try:
+                service.submit({"pods": windows[i % 8]}).result(timeout=600)
+            except Exception as e:  # noqa: BLE001 — the phase's verdict
+                errors.append(f"{type(e).__name__}: {e}")
+                return
+            sent.append((wall, (time.perf_counter() - t) * 1e3))
+            answered[0] += 1
+            i += 1
+
+    def wait_for(cond, seconds=600):
+        deadline = time.monotonic() + seconds
+        while not cond() and not errors and time.monotonic() < deadline:
+            time.sleep(0.02)
+
+    with CompileWatcher() as w:
+        thread = threading.Thread(target=client)
+        thread.start()
+        try:
+            wait_for(lambda: answered[0] >= 16)
+            stop_poll, poller = follow_ledger(ctrl, interval=0.05)
+            t1, landed = time.perf_counter(), time.time()
+            shutil.copy(CHAMPION, ledger2)
+            wait_for(lambda: service.swaps > 0)
+            promote_s = time.perf_counter() - t1
+            during = answered[0]
+            wait_for(lambda: answered[0] >= during + 20)
+            stop_poll.set()
+            poller.join(timeout=600)
+        finally:
+            stop.set()
+            thread.join(timeout=600)
+    service.close()
+    tmp.cleanup()
+    states = [r["state"] for r in ctrl.log.records]
+    serving_captures, shadow_captures = w.count_in(""), w.count_in("shadow")
+    if errors or states != ["PENDING", "SHADOW", "PROMOTED"] \
+            or ctrl.log.records[-1]["engine_kind"] != "aot" \
+            or serving_captures or not shadow_captures:
+        raise AssertionError(f"(d) follow_ledger: errors {errors[:3]}, "
+                             f"states {states}, captures serving "
+                             f"{serving_captures} shadow {shadow_captures}")
+    # the log's SHADOW and PROMOTED records (wall clock, ms) bound the
+    # build and the replay
+    at = {r["state"]: r["ts"] for r in ctrl.log.records}
+    client_ms = {}
+    for name, lo, hi in (("before", 0.0, landed),
+                         ("build", landed, at["SHADOW"]),
+                         ("replay", at["SHADOW"], at["PROMOTED"]),
+                         ("after", at["PROMOTED"], float("inf"))):
+        ms = [m for t, m in sent if lo <= t < hi]
+        client_ms[name] = ({"queries": len(ms),
+                            "p50": float(np.percentile(ms, 50)),
+                            "p99": float(np.percentile(ms, 99)),
+                            "max": max(ms)} if ms else {"queries": 0})
+    out["follow"] = {"promote_s": promote_s, "queries": answered[0],
+                     "shadow_captures": shadow_captures,
+                     "shadow_capture_s": w.backend_compile_seconds,
+                     "serving_captures": serving_captures,
+                     "shadow": ctrl.last_shadow,
+                     "client_ms": client_ms,
+                     "seconds": time.perf_counter() - t0}
+    log(f"[control] (d) follow_ledger: PROMOTED through the AOT path "
+        f"{promote_s:.1f} s after the champion landed, while a client "
+        f"thread answered {answered[0]} queries, none failed; "
+        f"{shadow_captures} shadow captures "
+        f"({w.backend_compile_seconds:.1f} s) beside the serving thread, "
+        f"0 on the serving path; shadow replay p99 "
+        f"{ctrl.last_shadow['p99_ms']} ms vs incumbent "
+        f"{ctrl.last_shadow['incumbent_p99_ms']} ms; "
+        f"{out['follow']['seconds']:.1f} s")
+    log(f"[control] (d) client query latency in ms by the query's start "
+        f"(before the champion landed / shadow build / shadow replay / "
+        f"after the swap): {json.dumps(client_ms)}; card {card}")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[control] phase {out['seconds']:.1f} s; card {card}")
+    return out
+
+
 def main() -> int:
     if not (ROOT / "fks_tpu_torch" / "csrc" / "fused_sim.cu").is_file():
         raise SystemExit("chip_smoke.py must run from a checkout that holds "
@@ -2109,7 +2381,17 @@ def main() -> int:
     ps_launches["13"] = mesh_launches["param_score"]
     log(f"[mesh] kernel launches in phase 13: {mesh_launches}")
 
-    # ---- 14. summary
+    # ---- 14. the control plane
+    fused.fused_sim.launches = parametric.score.launches = 0
+    summary["control"] = control_plane_phase(dev, card)
+    control_launches = {"fused_sim": fused.fused_sim.launches,
+                        "param_score": parametric.score.launches}
+    ps_launches["14"] = control_launches["param_score"]
+    log(f"[control] kernel launches in phase 14: {control_launches} (the "
+        f"control plane serves code champions: VM programs and the "
+        f"transpiled tier, no hand kernel)")
+
+    # ---- summary
     log(f"[summary] {json.dumps(summary)}")
     log(f"[card] {card}")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
@@ -2134,7 +2416,8 @@ def main() -> int:
         "ns_per_critical_step": ns_per_critical_step,
         "pop": POP, "check": "ok",
         "launches_by_phase": {"4": launches,
-                              "13": mesh_launches["fused_sim"]},
+                              "13": mesh_launches["fused_sim"],
+                              "14": control_launches["fused_sim"]},
         "mesh_launches_per_eval": {
             "1_shard": summary["mesh"]["launches_per_eval_1"],
             "4_logical_shards": summary["mesh"]["launches_per_eval_4"]},

@@ -1,30 +1,38 @@
-"""The port's command line: ``python -m fks_tpu_torch.cli serve ...`` and
-``... portfolio ...``.
+"""The port's command line: ``python -m fks_tpu_torch.cli serve ...``,
+``... portfolio ...`` and ``... pipeline ...``.
 
-Port of the ``serve`` and ``portfolio`` subcommands of fks_tpu.cli
-(fks_tpu/cli.py:589-700 and :896-1051, arguments :1812-1927 and
-:1970-2023). ``serve`` serves a pinned champion as a warm what-if query
-engine — build or load an artifact, optionally capture every shape bucket
-up front, then answer queries over stdin/JSONL, a file, or a localhost
-HTTP listener; ``--selftest N`` instead runs the batched-vs-unbatched
-exact-parity sweep and exits nonzero on any drift. ``portfolio`` serves N
-resident champions from one set of graphs with per-request routing;
-``--selftest N`` runs the per-slot and mixed-batch parity sweep, then
-swaps one slot out and back under live traffic and fails on any capture.
+Port of the ``serve``, ``portfolio`` and ``pipeline`` subcommands of
+fks_tpu.cli (fks_tpu/cli.py:589-785, :896-1051 and :1054-1082, arguments
+:1812-1927, :1970-2047). ``serve`` serves a pinned champion as a warm
+what-if query engine — build or load an artifact, optionally capture
+every shape bucket up front, then answer queries over stdin/JSONL, a
+file, or a localhost HTTP listener; ``--selftest N`` instead runs the
+batched-vs-unbatched exact-parity sweep and exits nonzero on any drift.
+``--follow-ledger`` runs the promotion controller beside serving (resume
+the last surviving promotion, shadow-gate each new ledger champion,
+hot-swap, roll back on SLO burn); ``--drain-state PATH`` drains and
+persists the replay buffer on SIGTERM and preloads it on the next start.
+``portfolio`` serves N resident champions from one set of graphs with
+per-request routing; ``--selftest N`` runs the per-slot and mixed-batch
+parity sweep, then swaps one slot out and back under live traffic and
+fails on any capture. ``pipeline`` prints the promotion log's status,
+or with ``--drill`` runs the fault-injection drill matrix and exits
+nonzero on any failed drill. ``--run-dir DIR`` flight-records any of the
+three into fks_tpu's run-directory layout.
 
 Runs on the card (``--device cuda``, the default) or, with ``--device
 cpu`` (or ``--cpu``), on the plain PyTorch path. ``--devices N`` shards
 the lane axis over a mesh: on the card the first N CUDA devices (it
 raises when there are fewer), on the CPU N logical shards of the one CPU
 device. fks_tpu's ``--devices`` instead sizes a virtual CPU device mesh
-and requires ``--cpu``. fks_tpu's other subcommands, the run directory
-and the metrics file wait for ROADMAP queue 1 item 6; options that need
-the promotion log or the drain coordinator raise and name their item.
+and requires ``--cpu``. fks_tpu's other subcommands and the metrics file
+wait for ROADMAP queue 1 item 6.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 
 
@@ -51,21 +59,28 @@ def _mesh(args):
     return population_mesh(cuda_devices(args.devices))
 
 
-def _check_waiting_options(args) -> None:
-    """Options of fks_tpu's serve that wait for unported modules."""
-    if args.follow_ledger:
-        raise ValueError("--follow-ledger needs pipeline.PromotionLog and "
-                         "the promotion controller: ROADMAP queue 1 item 5")
-    if args.drain_state:
-        raise ValueError("--drain-state needs resilience/drain.py: ROADMAP "
-                         "queue 1 item 5")
+def _flight_recorder(args, command):
+    """Context manager installing the process-wide flight recorder when
+    ``--run-dir`` was given (``obs.recording``), else the shared
+    NullRecorder. Opened up front, so an unwritable run directory fails
+    before any device work."""
+    from fks_tpu_torch import obs
+
+    if not args.run_dir:
+        return obs.recording(obs.NULL)
+    return obs.recording(obs.FlightRecorder(
+        args.run_dir, meta={"command": command, "argv": sys.argv[1:]}))
 
 
 def cmd_serve(args) -> int:
     """Serve a pinned champion as a warm what-if query engine."""
-    _check_waiting_options(args)
-    from fks_tpu_torch import obs
     from fks_tpu_torch.obs.telemetry import watch_compiles
+
+    with _flight_recorder(args, "serve") as rec, watch_compiles(rec):
+        return _serve(args, rec)
+
+
+def _serve(args, rec) -> int:
     from fks_tpu_torch.serve import (
         ServeEngine, ServeService, ShapeEnvelope, latest_champion,
         load_champion, selftest,
@@ -73,124 +88,189 @@ def cmd_serve(args) -> int:
     from fks_tpu_torch.serve.artifact import CHAMPION_DIR
     from fks_tpu_torch.serve.service import run_http, run_jsonl
 
-    rec = obs.get_recorder()
     mesh = _mesh(args)
     device = None if mesh is not None else _device(args)
-    with watch_compiles(rec):
-        ledger_dir = args.ledger_dir or CHAMPION_DIR
-        if args.artifact:
-            engine = ServeEngine.load(args.artifact, recorder=rec,
-                                      mesh=mesh, device=device)
-        else:
-            champ_path = args.champion or latest_champion(ledger_dir,
-                                                          recorder=rec)
-            if not champ_path:
-                print("error: no champion JSON found — pass --champion or "
-                      "evolve one first (policies/discovered/)",
+    ledger_dir = args.ledger_dir or CHAMPION_DIR
+    promotion_log = (args.promotion_log
+                     or os.path.join(ledger_dir, "promotion.jsonl"))
+    if args.artifact:
+        engine = ServeEngine.load(args.artifact, recorder=rec,
+                                  mesh=mesh, device=device)
+    else:
+        champ_path = args.champion
+        if not champ_path and args.follow_ledger:
+            # crash recovery: the promotion log outranks raw ledger
+            # order — restart with whatever the last surviving
+            # promotion shipped, not merely the best-scored file
+            from fks_tpu_torch.pipeline import PromotionLog
+            active = PromotionLog(promotion_log).active()
+            if active and os.path.exists(active.get("champion", "")):
+                champ_path = active["champion"]
+                print(f"resuming promoted champion: {champ_path}",
                       file=sys.stderr)
-                return 2
-            champion = load_champion(champ_path)
-            wl = _parse_workload(args)
-            build_kw = dict(
-                envelope=ShapeEnvelope(max_pods=args.max_pods,
-                                       max_batch=args.max_batch),
-                engine=args.engine, prefilter_k=args.prefilter_k,
-                state_pack=args.state_pack, mesh=mesh, recorder=rec,
-                device=device)
-            engine = None
-            if args.serve_engine == "vm":
-                from fks_tpu_torch.funsearch.vm import VMUnsupported
-                from fks_tpu_torch.serve import VMServeEngine
-                try:
-                    engine = VMServeEngine(champion, wl, **build_kw)
-                except VMUnsupported as e:
-                    # coverage gap, not an error: serve it on the closure
-                    # engine and say so (the recorded event is what a
-                    # gate asserts on)
-                    rec.event("vm_swap", outcome="fallback",
-                              champion=champ_path, detail=str(e))
-                    print(f"champion not VM-lowerable ({e}); falling "
-                          "back to the AOT closure engine",
-                          file=sys.stderr)
-            if engine is None:
-                engine = ServeEngine(champion, wl, **build_kw)
-        if rec.enabled:
-            rec.annotate_meta(
-                engine=engine.engine_name, engine_kind=engine.engine_kind,
-                champion={"score": engine.champion.score,
-                          "source": engine.champion.source},
-                envelope=engine.envelope.to_json(),
-                policy_tier=engine.policy_tier,
-                prefilter_k=engine.prefilter_k)
-        cap = getattr(engine, "program_capacity", None)
-        print(f"serving champion score={engine.champion.score:.4f} "
-              f"tier={engine.policy_tier} engine={engine.engine_name} "
-              f"kind={engine.engine_kind}"
-              + (f" capacity={cap}" if cap else "")
-              + f" prefilter_k={engine.prefilter_k}"
-              + f" device={engine.device}"
-              + (f" shards={engine._shards}" if mesh is not None else ""),
-              file=sys.stderr)
-        if args.save_artifact:
-            if args.warmup:
-                engine.warmup()
-            path = engine.save(args.save_artifact)
-            print(f"artifact saved: {path}", file=sys.stderr)
-        if args.selftest:
-            result = selftest(engine, count=args.selftest,
-                              pods_per_query=args.pods_per_query,
-                              tol=args.audit_tol)
-            if args.serve_engine == "vm":
-                # did the requested VM binding engage, or did the champion
-                # fall back to the closure engine?
-                result["vm_coverage"] = (1.0 if engine.engine_kind == "vm"
-                                         else 0.0)
-            if rec.enabled and "snapshot_cache" in result:
-                rec.metric("snapshot_cache", **result["snapshot_cache"])
-            print(json.dumps(result, indent=2))
-            return 0 if result["ok"] else 1
-        if args.warmup and not args.save_artifact:
-            n = engine.warmup()
-            print(f"warm: {n} bucket graphs captured", file=sys.stderr)
-        if args.save_artifact and not (args.queries or args.http):
-            return 0  # artifact-build invocation, nothing to serve
-        slo = None
-        if args.slo_p99_ms or args.slo_qps:
-            from fks_tpu_torch.obs.history import SLOConfig
-            slo = SLOConfig(p99_ms=args.slo_p99_ms, qps=args.slo_qps,
-                            error_budget=args.slo_error_budget)
-        service = ServeService(engine, recorder=rec,
-                               max_wait_s=args.max_wait_ms / 1e3,
-                               audit_every=args.audit_every,
-                               audit_tol=args.audit_tol, slo=slo,
-                               max_queue=args.max_queue,
-                               default_deadline_s=args.request_deadline_s,
-                               accounting=args.accounting)
-        if args.degraded_fallback:
-            from fks_tpu_torch.resilience import exact_fallback_factory
+        if not champ_path:
+            champ_path = latest_champion(ledger_dir, recorder=rec)
+        if not champ_path:
+            print("error: no champion JSON found — pass --champion or "
+                  "evolve one first (policies/discovered/)",
+                  file=sys.stderr)
+            return 2
+        champion = load_champion(champ_path)
+        wl = _parse_workload(args)
+        build_kw = dict(
+            envelope=ShapeEnvelope(max_pods=args.max_pods,
+                                   max_batch=args.max_batch),
+            engine=args.engine, prefilter_k=args.prefilter_k,
+            state_pack=args.state_pack, mesh=mesh, recorder=rec,
+            device=device)
+        engine = None
+        if args.serve_engine == "vm":
+            from fks_tpu_torch.funsearch.vm import VMUnsupported
+            from fks_tpu_torch.serve import VMServeEngine
+            try:
+                engine = VMServeEngine(champion, wl, **build_kw)
+            except VMUnsupported as e:
+                # coverage gap, not an error: serve it on the closure
+                # engine and say so (the recorded event is what a
+                # gate asserts on)
+                rec.event("vm_swap", outcome="fallback",
+                          champion=champ_path, detail=str(e))
+                print(f"champion not VM-lowerable ({e}); falling "
+                      "back to the AOT closure engine",
+                      file=sys.stderr)
+        if engine is None:
+            engine = ServeEngine(champion, wl, **build_kw)
+    if rec.enabled:
+        rec.annotate_meta(
+            engine=engine.engine_name, engine_kind=engine.engine_kind,
+            champion={"score": engine.champion.score,
+                      "source": engine.champion.source},
+            envelope=engine.envelope.to_json(),
+            policy_tier=engine.policy_tier,
+            prefilter_k=engine.prefilter_k)
+    cap = getattr(engine, "program_capacity", None)
+    print(f"serving champion score={engine.champion.score:.4f} "
+          f"tier={engine.policy_tier} engine={engine.engine_name} "
+          f"kind={engine.engine_kind}"
+          + (f" capacity={cap}" if cap else "")
+          + f" prefilter_k={engine.prefilter_k}"
+          + f" device={engine.device}"
+          + (f" shards={engine._shards}" if mesh is not None else ""),
+          file=sys.stderr)
+    if args.save_artifact:
+        if args.warmup:
+            engine.warmup()
+        path = engine.save(args.save_artifact)
+        print(f"artifact saved: {path}", file=sys.stderr)
+    if args.selftest:
+        result = selftest(engine, count=args.selftest,
+                          pods_per_query=args.pods_per_query,
+                          tol=args.audit_tol)
+        if args.serve_engine == "vm":
+            # did the requested VM binding engage, or did the champion
+            # fall back to the closure engine?
+            result["vm_coverage"] = (1.0 if engine.engine_kind == "vm"
+                                     else 0.0)
+        if rec.enabled and "snapshot_cache" in result:
+            rec.metric("snapshot_cache", **result["snapshot_cache"])
+        print(json.dumps(result, indent=2))
+        return 0 if result["ok"] else 1
+    if args.warmup and not args.save_artifact:
+        n = engine.warmup()
+        print(f"warm: {n} bucket graphs captured", file=sys.stderr)
+    if args.save_artifact and not (args.queries or args.http):
+        return 0  # artifact-build invocation, nothing to serve
+    slo = None
+    if args.slo_p99_ms or args.slo_qps:
+        from fks_tpu_torch.obs.history import SLOConfig
+        slo = SLOConfig(p99_ms=args.slo_p99_ms, qps=args.slo_qps,
+                        error_budget=args.slo_error_budget)
+    service = ServeService(engine, recorder=rec,
+                           max_wait_s=args.max_wait_ms / 1e3,
+                           audit_every=args.audit_every,
+                           audit_tol=args.audit_tol, slo=slo,
+                           max_queue=args.max_queue,
+                           default_deadline_s=args.request_deadline_s,
+                           accounting=args.accounting)
+    if args.degraded_fallback:
+        from fks_tpu_torch.resilience import exact_fallback_factory
 
-            service.enable_degraded_mode(
-                exact_fallback_factory(engine.champion, _parse_workload(args),
-                                       engine.envelope, recorder=rec),
-                rebuild_factory=None)
-            print("degraded-mode fallback armed (exact engine on the CPU, "
-                  "batch 1)", file=sys.stderr)
-        errors = 0
-        try:
-            if args.http:
-                print(f"listening on http://127.0.0.1:{args.http} "
-                      "(POST /query, GET /stats, GET /healthz)",
+        service.enable_degraded_mode(
+            exact_fallback_factory(engine.champion, _parse_workload(args),
+                                   engine.envelope, recorder=rec),
+            rebuild_factory=None)
+        print("degraded-mode fallback armed (exact engine on the CPU, "
+              "batch 1)", file=sys.stderr)
+    drainer = None
+    if args.drain_state:
+        from fks_tpu_torch.resilience import (
+            DrainCoordinator, load_serve_state,
+        )
+
+        if os.path.exists(args.drain_state):
+            try:
+                n = service.preload_replay(
+                    load_serve_state(args.drain_state)["replay"])
+                print(f"replay buffer preloaded: {n} queries from "
+                      f"{args.drain_state}", file=sys.stderr)
+            except ValueError as e:
+                print(f"ignoring stale drain state: {e}",
                       file=sys.stderr)
-                run_http(service, args.http,
-                         deadline_s=args.request_deadline_s)
-            elif args.queries and args.queries != "-":
-                with open(args.queries) as f:
-                    errors = run_jsonl(service, f)
-            else:
-                errors = run_jsonl(service)  # stdin
-        finally:
-            service.close()
-            print(json.dumps(service.summary()), file=sys.stderr)
+        drainer = DrainCoordinator(service,
+                                   state_path=args.drain_state,
+                                   recorder=rec)
+    stop_follow = None
+    if args.follow_ledger:
+        from fks_tpu_torch.obs.history import SLOConfig
+        from fks_tpu_torch.pipeline import (
+            PromotionConfig, PromotionController, follow_ledger,
+        )
+        controller = PromotionController(
+            service, ledger_dir=ledger_dir, log_path=promotion_log,
+            config=PromotionConfig(slo=slo if slo is not None
+                                   else SLOConfig()),
+            recorder=rec)
+        # one synchronous poll before traffic (a champion newer than
+        # the one we loaded promotes up front, deterministically),
+        # then the background poll thread takes over
+        first = controller.poll_once()
+        if first.get("action") != "idle":
+            print(f"promotion: {first}", file=sys.stderr)
+        stop_follow, _ = follow_ledger(controller,
+                                       interval=args.promote_interval)
+    # the SIGTERM handler goes in after the synchronous poll: the handler
+    # drains on the main thread's behalf and waits for the drain, which
+    # could not finish while that same thread held a capture or an
+    # engine's batch turn for the poll
+    if drainer is not None and not drainer.install():
+        print("warning: SIGTERM handler unavailable off the main "
+              "thread; drain runs on normal shutdown only",
+              file=sys.stderr)
+    errors = 0
+    try:
+        if args.http:
+            print(f"listening on http://127.0.0.1:{args.http} "
+                  "(POST /query, GET /stats, GET /healthz)",
+                  file=sys.stderr)
+            run_http(service, args.http,
+                     deadline_s=args.request_deadline_s,
+                     drain_coordinator=drainer)
+        elif args.queries and args.queries != "-":
+            with open(args.queries) as f:
+                errors = run_jsonl(service, f)
+        else:
+            errors = run_jsonl(service)  # stdin
+    finally:
+        if stop_follow is not None:
+            stop_follow.set()
+        if drainer is not None and drainer.report is None:
+            # normal shutdown still drains + persists (idempotent
+            # with the SIGTERM path)
+            drainer.drain()
+        if drainer is not None:
+            drainer.uninstall()
+        service.close()
+        print(json.dumps(service.summary()), file=sys.stderr)
     return 1 if errors else 0
 
 
@@ -222,10 +302,10 @@ def cmd_portfolio(args) -> int:
     from fks_tpu_torch.serve import ChampionSpec, ShapeEnvelope, load_champion
     from fks_tpu_torch.serve.service import run_http, run_jsonl
 
-    rec = obs.get_recorder()
     mesh = _mesh(args)
     device = None if mesh is not None else _device(args)
-    with obs.watch_compiles(rec):
+    with _flight_recorder(args, "portfolio") as rec, \
+            obs.watch_compiles(rec):
         if args.champion:
             champs = [load_champion(p) for p in args.champion]
             wl = _parse_workload(args)
@@ -349,6 +429,42 @@ def _portfolio_selftest_run(args, engine, resident, portfolio_selftest):
     return 0 if result["ok"] else 1
 
 
+def cmd_pipeline(args) -> int:
+    """Promotion-pipeline utilities (``pipeline``). Default: print the
+    promotion.jsonl state-machine status (per-attempt states, the active
+    promotion, interrupted attempts, torn lines). ``--drill`` runs the
+    deterministic fault-injection drill matrix on the device instead and
+    exits nonzero on any failed drill."""
+    from fks_tpu_torch.serve.artifact import CHAMPION_DIR
+
+    ledger_dir = args.ledger_dir or CHAMPION_DIR
+    log_path = args.log or os.path.join(ledger_dir, "promotion.jsonl")
+    if args.drill:
+        from fks_tpu_torch import obs
+        from fks_tpu_torch.pipeline import run_drills
+
+        with _flight_recorder(args, "pipeline") as rec, \
+                obs.watch_compiles(rec):
+            results = run_drills(log=lambda m: print(m, file=sys.stderr),
+                                 only=args.only, device=_device(args))
+            ok = all(r["ok"] for r in results)
+            if rec.enabled:
+                rec.annotate_meta(drills=len(results), drills_ok=ok)
+        print(json.dumps({"ok": ok, "drills": results}, indent=2))
+        return 0 if ok else 1
+    from fks_tpu_torch.pipeline import PromotionLog
+
+    print(json.dumps(PromotionLog(log_path).summary(), indent=2))
+    return 0
+
+
+def _add_run_dir_flag(p) -> None:
+    p.add_argument("--run-dir", default="",
+                   help="flight-recorder run directory (meta.json, "
+                        "events.jsonl, metrics.jsonl, heartbeat), in "
+                        "fks_tpu's layout")
+
+
 def _add_placement_flags(p) -> None:
     p.add_argument("--device", default="cuda",
                    help="where the engine runs: 'cuda' (default) or "
@@ -423,7 +539,10 @@ def build_parser() -> argparse.ArgumentParser:
                          "fallback engine on the CPU (same champion and "
                          "ladder); off by default")
     sv.add_argument("--drain-state", default="",
-                    help="(waits for resilience/drain.py; raises)")
+                    help="on SIGTERM, drain the batcher and persist the "
+                         "replay buffer + summary to this path (loaded "
+                         "back on the next start to refill shadow-eval "
+                         "replay traffic)")
     sv.add_argument("--prefilter-k", type=int, default=None,
                     help="SimConfig.node_prefilter_k override (default: "
                          "auto via the policy-cost probe)")
@@ -458,14 +577,22 @@ def build_parser() -> argparse.ArgumentParser:
                     help="fraction of requests allowed over the p99 "
                          "target (default 0.01)")
     sv.add_argument("--follow-ledger", action="store_true",
-                    help="(the promotion controller waits for pipeline/; "
-                         "raises)")
+                    help="run the promotion controller alongside serving: "
+                         "tail the champion ledger, shadow-gate each new "
+                         "champion, hot-swap on promotion, roll back on "
+                         "SLO burn (fks_tpu_torch.pipeline)")
     sv.add_argument("--ledger-dir", default="",
-                    help="champion ledger directory (default: "
+                    help="champion ledger directory to follow (default: "
                          "policies/discovered/)")
+    sv.add_argument("--promotion-log", default="",
+                    help="promotion.jsonl path (default: "
+                         "<ledger-dir>/promotion.jsonl)")
+    sv.add_argument("--promote-interval", type=float, default=5.0,
+                    help="seconds between ledger polls (default 5)")
     sv.add_argument("--accounting", action="store_true",
                     help="per-tenant accounting + query fingerprinting "
                          "(obs.workload); off by default")
+    _add_run_dir_flag(sv)
     sv.set_defaults(fn=cmd_serve)
 
     pf = sub.add_parser(
@@ -517,7 +644,40 @@ def build_parser() -> argparse.ArgumentParser:
                     help="query size for --selftest (default 3)")
     pf.add_argument("--audit-tol", type=float, default=1e-5,
                     help="selftest score drift tolerance")
+    _add_run_dir_flag(pf)
     pf.set_defaults(fn=cmd_portfolio)
+
+    pp = sub.add_parser(
+        "pipeline",
+        help="promotion-pipeline status / fault-injection drills")
+    pp.add_argument("--device", default="cuda",
+                    help="where --drill runs its serve stack: 'cuda' "
+                         "(default) or 'cpu'")
+    pp.add_argument("--cpu", action="store_true",
+                    help="the same as --device cpu")
+    pp.add_argument("--ledger-dir", default="",
+                    help="champion ledger directory (default: "
+                         "policies/discovered/)")
+    pp.add_argument("--log", default="",
+                    help="promotion.jsonl path (default: "
+                         "<ledger-dir>/promotion.jsonl)")
+    pp.add_argument("--drill", action="store_true",
+                    help="run the deterministic fault-injection drill "
+                         "matrix (corrupt champion, device-eval error, "
+                         "p99 regression, kill -9 at every state, "
+                         "rollback-on-burn, zero-capture swap, VM double "
+                         "swap, portfolio slot promotion, LLM outage, "
+                         "plus the resilience matrix: deadline storm, "
+                         "queue overload, device loss mid-batch and on a "
+                         "sharded engine, degrade-then-recover, SIGTERM "
+                         "drain, WAL resume) and exit nonzero on any "
+                         "failure")
+    pp.add_argument("--only", default="",
+                    help="comma-separated drill-name substrings: run only "
+                         "the matching drills (e.g. "
+                         "--only deadline_storm,wal_resume)")
+    _add_run_dir_flag(pp)
+    pp.set_defaults(fn=cmd_pipeline)
     return ap
 
 

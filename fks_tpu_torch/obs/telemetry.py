@@ -9,12 +9,18 @@ after. So the counterpart counts captures:
 - ``graph_capture(label)``: the context every capture site of the port
   wraps its ``torch.cuda.graph(...)`` in (``sim.engine.GraphedChunk``,
   ``sim.engine.probe_policy_cost``). On exit it reports the capture's
-  wall seconds to every installed watcher.
+  wall seconds to every installed watcher, with the capturing thread's
+  ``capture_scope`` name;
+- ``capture_scope(name)``: names the captures the current thread makes
+  inside it. The promotion controller builds and replays a candidate's
+  shadow under ``"shadow"`` while the batcher thread keeps serving, so a
+  watcher can count the shadow's captures apart from the serving path's
+  (fks_tpu counts the shadow's compiles apart the same way);
 - ``CompileWatcher``: while installed, records each capture as
-  (key, seconds) and appends one ``kind="compile"`` event to its
-  recorder. ``backend_compile_count`` / ``backend_compile_seconds`` are
-  the captures and their seconds: "zero recompiles on the warm path"
-  reads as zero captures.
+  (key, seconds) with its scope and appends one ``kind="compile"`` event
+  to its recorder. ``backend_compile_count`` / ``backend_compile_seconds``
+  are the captures and their seconds: "zero recompiles on the warm path"
+  reads as zero captures; ``count_in(scope)`` counts one scope's.
 - ``device_snapshot``/``record_devices``: per-device identity plus the
   caching allocator's counters (``torch.cuda.memory_stats``), None on
   the CPU;
@@ -38,21 +44,36 @@ BACKEND_COMPILE = "capture"
 
 _watchers: List["CompileWatcher"] = []
 _watchers_lock = threading.Lock()
+_scope = threading.local()
+
+
+@contextlib.contextmanager
+def capture_scope(name: str) -> Iterator[None]:
+    """Name the graph captures the current thread makes in this scope
+    (``CompileWatcher.count_in``); scopes nest, the innermost wins."""
+    prev = getattr(_scope, "name", "")
+    _scope.name = name
+    try:
+        yield
+    finally:
+        _scope.name = prev
 
 
 @contextlib.contextmanager
 def graph_capture(label: str) -> Iterator[None]:
     """Wrap one CUDA graph capture: its wall seconds go to every installed
-    ``CompileWatcher`` as key ``/torch/cuda/graph/<label>/capture``. A
-    capture that raises reports nothing."""
+    ``CompileWatcher`` as key ``/torch/cuda/graph/<label>/capture``, with
+    the thread's ``capture_scope``. A capture that raises reports
+    nothing."""
     t0 = time.perf_counter()
     yield
     seconds = time.perf_counter() - t0
     with _watchers_lock:
         watchers = list(_watchers)
     key = f"{COMPILE_PREFIX}/{label}/{BACKEND_COMPILE}"
+    scope = getattr(_scope, "name", "")
     for w in watchers:
-        w._listen(key, seconds)
+        w._listen(key, seconds, scope=scope)
 
 
 class CompileWatcher:
@@ -71,15 +92,19 @@ class CompileWatcher:
         self.recorder = recorder if recorder is not None else get_recorder()
         self.prefix = prefix
         self.events: List[tuple] = []  # (key, seconds)
+        self.scopes: List[str] = []  # the capture_scope of each event
         self._lock = threading.Lock()
         self._installed = False
 
-    def _listen(self, key: str, seconds: float, **kwargs) -> None:
+    def _listen(self, key: str, seconds: float, scope: str = "",
+                **kwargs) -> None:
         if not self._installed or not key.startswith(self.prefix):
             return
         with self._lock:
             self.events.append((key, float(seconds)))
-        self.recorder.event("compile", key=key, seconds=float(seconds))
+            self.scopes.append(scope)
+        self.recorder.event("compile", key=key, seconds=float(seconds),
+                            **({"scope": scope} if scope else {}))
 
     def install(self) -> "CompileWatcher":
         if not self._installed:
@@ -123,6 +148,13 @@ class CompileWatcher:
         with self._lock:
             return sum(1 for k, _ in self.events
                        if k.endswith(BACKEND_COMPILE))
+
+    def count_in(self, scope: str) -> int:
+        """Graph captures made under ``capture_scope(scope)`` ("" counts
+        those made outside any scope)."""
+        with self._lock:
+            return sum(1 for (k, _), s in zip(self.events, self.scopes)
+                       if s == scope and k.endswith(BACKEND_COMPILE))
 
     @property
     def backend_compile_seconds(self) -> float:

@@ -275,7 +275,7 @@ class PortfolioEngine(VMServeEngine):
                 if not 0 <= s < self.n_slots:
                     raise ValueError(
                         f"slot {s} outside portfolio [0, {self.n_slots})")
-        with self._batch_scope():
+        with self.exclusive(), self._batch_scope():
             self._batch_slots = slots
             try:
                 self._hold_program()

@@ -1,12 +1,13 @@
 """Resilience: the evolve loop's generation write-ahead log and the serve
-tier's deadlines, admission control and degraded mode.
+tier's deadlines, admission control, degraded mode and SIGTERM drain.
 
 Port of fks_tpu.resilience, all host-side control plane: ``deadline`` /
 ``admission`` (per-request budgets, a bounded queue that sheds with a
 typed ``ShedError``), ``degrade`` (device-fault classification and the
-opt-in flip to an exact fallback engine) and ``wal``. The SIGTERM drain
-(``drain.py``) and the drills wait for the control-plane slice (ROADMAP
-queue 1 item 5).
+opt-in flip to an exact fallback engine), ``drain`` (the SIGTERM
+coordinator and the persisted serve state), ``wal``, and ``drills``
+(``RESILIENCE_DRILLS``, the resilience half of ``pipeline.run_drills``,
+which import the serve stack inside each drill).
 """
 from fks_tpu_torch.resilience.admission import (
     AdmissionConfig, AdmissionController,
@@ -18,6 +19,10 @@ from fks_tpu_torch.resilience.degrade import (
     DegradeConfig, DegradedModeManager, DeviceFault, EngineBuildError,
     NaNFlood, classify_fault, exact_fallback_factory,
 )
+from fks_tpu_torch.resilience.drain import (
+    DrainCoordinator, load_serve_state, persist_serve_state,
+)
+from fks_tpu_torch.resilience.drills import RESILIENCE_DRILLS
 from fks_tpu_torch.resilience.wal import GenerationWAL
 
 __all__ = [
@@ -28,11 +33,15 @@ __all__ = [
     "DegradeConfig",
     "DegradedModeManager",
     "DeviceFault",
+    "DrainCoordinator",
     "EngineBuildError",
     "GenerationWAL",
     "NaNFlood",
+    "RESILIENCE_DRILLS",
     "ResilienceError",
     "ShedError",
     "classify_fault",
     "exact_fallback_factory",
+    "load_serve_state",
+    "persist_serve_state",
 ]

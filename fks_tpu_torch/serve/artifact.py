@@ -43,6 +43,7 @@ import hashlib
 import json
 import math
 import os
+import threading
 import time
 from collections import OrderedDict
 from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
@@ -468,6 +469,56 @@ class _MeshGraph:
         return self.pending.result()
 
 
+class _Turn:
+    """An engine's batch turn (``ServeEngine.exclusive``): a re-entrant
+    lock that hands itself to waiting threads in the order they asked (a
+    ticket lock). A thread that lets go and at once asks again queues
+    behind the threads already waiting, so a live batch that waited out a
+    promotion's replayed query runs before the next replay."""
+
+    def __init__(self) -> None:
+        self._cond = threading.Condition(threading.Lock())
+        self._owner: Optional[int] = None
+        self._depth = 0
+        self._next_ticket = 0
+        self._serving = 0
+        self._abandoned: set = set()
+
+    def __enter__(self) -> "_Turn":
+        me = threading.get_ident()
+        with self._cond:
+            if self._owner == me:
+                self._depth += 1
+                return self
+            ticket = self._next_ticket
+            self._next_ticket += 1
+            try:
+                while ticket != self._serving:
+                    self._cond.wait()
+            except BaseException:  # interrupted while waiting: give it up
+                self._abandoned.add(ticket)
+                self._skip_abandoned()
+                raise
+            self._owner, self._depth = me, 1
+        return self
+
+    def __exit__(self, *exc) -> None:
+        with self._cond:
+            self._depth -= 1
+            if self._depth == 0:
+                self._owner = None
+                self._serving += 1
+                self._skip_abandoned()
+
+    def _skip_abandoned(self) -> None:
+        """Pass over the tickets of waiters that gave up, and wake the
+        waiters (under ``_cond``)."""
+        while self._owner is None and self._serving in self._abandoned:
+            self._abandoned.discard(self._serving)
+            self._serving += 1
+        self._cond.notify_all()
+
+
 class _Inflight(NamedTuple):
     """One dispatched-but-unharvested chunk of the double-buffered
     answer pipeline."""
@@ -561,6 +612,12 @@ class ServeEngine:
                          else obs.NULL_PROFILER)
         self._mod = get_engine(engine)
         self._graphs: Dict[tuple, Any] = {}
+        # one batch at a time (``exclusive``): a batch copies its tables
+        # into the graphs' static buffers, so two threads answering at
+        # once (the batcher and a promotion controller replaying traffic
+        # on the incumbent) would overwrite each other's inputs; shadow
+        # views share it with the graphs they share
+        self._turn = _Turn()
         self.cold_compiles = 0
         # every batch of this engine runs on one stream per device,
         # whichever thread drives it (the caller's, or the service's
@@ -807,6 +864,17 @@ class ServeEngine:
             self._ktable_cache_bytes -= freed
         return dev
 
+    def exclusive(self) -> _Turn:
+        """This engine's batch turn, a re-entrant context manager: while a
+        thread holds it, no other thread's batch runs on the engine (or on
+        a shadow view sharing its graphs), and waiting threads get it in
+        the order they asked. Every ``answer_batch`` takes it first,
+        before any other lock of the engine, so a caller may hold it
+        around its own ``answer_batch`` calls: the promotion controller
+        times a replayed query from inside it, with no live batch beside
+        the replay and no wait for one in its time."""
+        return self._turn
+
     def answer_batch(self, pod_lists: Sequence[Sequence[dict]]) -> List[dict]:
         """Answer N "place this pod list" queries. Queries are grouped by
         pod bucket, chunked at the max batch, lane-padded to the graph's
@@ -818,14 +886,14 @@ class ServeEngine:
         for pods in pod_lists:
             validate_query_pods(pods, max_pods=self.envelope.max_pods,
                                 max_gpu_milli=self.envelope.max_gpu_milli)
-        self.last_batch_timing = {"pack_h2d_s": 0.0, "dispatch_s": 0.0}
         answers: List[Optional[dict]] = [None] * len(pod_lists)
         groups: Dict[int, List[int]] = {}
         for i, pods in enumerate(pod_lists):
             groups.setdefault(
                 self.envelope.pod_bucket_for(len(pods)), []).append(i)
         mb = self.envelope.max_batch * self._shards
-        with self._device_scope():
+        with self._turn, self._device_scope():
+            self.last_batch_timing = {"pack_h2d_s": 0.0, "dispatch_s": 0.0}
             inflight: Optional[_Inflight] = None
             for bucket, idxs in groups.items():
                 for c0 in range(0, len(idxs), mb):

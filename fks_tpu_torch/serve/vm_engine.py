@@ -332,7 +332,8 @@ class VMServeEngine(ServeEngine):
 
     def answer_batch(self, pod_lists):
         # a whole batch answers under ONE champion: swap_program's flip
-        # waits for the in-flight batch instead of tearing it
-        with self._batch_scope():
+        # waits for the in-flight batch instead of tearing it; the batch
+        # turn comes first (``ServeEngine.exclusive``)
+        with self.exclusive(), self._batch_scope():
             self._hold_program()
             return super().answer_batch(pod_lists)

@@ -54,6 +54,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import gc
+import threading
 from typing import Any, Callable, Optional, Sequence
 
 import numpy as np
@@ -544,6 +545,10 @@ def bind_step(build_step_fn, workload: Workload, param_policy, params,
     return step
 
 
+#: one capture at a time in the process (``capture``)
+_CAPTURE_LOCK = threading.RLock()
+
+
 @contextlib.contextmanager
 def capture(graph, stream, label: str):
     """Capture CUDA work into ``graph`` on ``stream`` (a stream of the
@@ -551,19 +556,33 @@ def capture(graph, stream, label: str):
     belongs to whichever card was current at the process's first capture,
     and a capture on another card's stream records none of this card's
     work), counted by ``obs.telemetry.graph_capture`` under ``label``.
-    Python's garbage collector pauses meanwhile (``torch.cuda.graph``
-    collects once before it begins): a collection during the capture can
-    free an older graph, and destroying a graph invalidates a capture in
-    progress."""
-    enabled = gc.isenabled()
-    gc.disable()
-    try:
-        with telemetry.graph_capture(label), \
-                torch.cuda.graph(graph, stream=stream):
-            yield
-    finally:
-        if enabled:
-            gc.enable()
+
+    Captures may run while other threads serve (the promotion controller
+    captures a candidate's graphs while the batcher thread replays the
+    incumbent's), so:
+
+    - the capture runs in ``capture_error_mode="thread_local"``: the
+      default global mode makes another thread's unsafe calls (a
+      synchronising copy of a served answer, an allocation) fail or
+      invalidate the capture; thread-local mode checks only this thread;
+    - captures take turns (``_CAPTURE_LOCK``), and Python's garbage
+      collector pauses during each: ``torch.cuda.graph`` collects once
+      before it begins, a collection during the capture can free an older
+      graph, and destroying a graph invalidates a capture in progress.
+      Taking turns keeps the collector's snapshot and restore of one
+      capture from interleaving with another thread's, which could turn
+      the collector back on in the middle of that capture."""
+    with _CAPTURE_LOCK:
+        enabled = gc.isenabled()
+        gc.disable()
+        try:
+            with telemetry.graph_capture(label), \
+                    torch.cuda.graph(graph, stream=stream,
+                                     capture_error_mode="thread_local"):
+                yield
+        finally:
+            if enabled:
+                gc.enable()
 
 
 class GraphedChunk:

@@ -676,3 +676,126 @@ def test_sharded_eval_across_cards_matches_one_card(cuda):
     assert torch.equal(scores, want.policy_score)
     assert_result_matches(ev.results(pop), result_fields(want), rtol=0,
                           atol=0)
+
+
+# ------------------------------------------------------- control plane
+
+
+def test_promotion_through_the_aot_path_while_serving(cuda, tmp_path):
+    """``follow_ledger`` promotes a candidate through the AOT path — its
+    shadow ladder and exact references captured on the poll thread while
+    a client thread keeps querying the incumbent through the batcher: no
+    query fails, every capture was the shadow's (none on the serving
+    path; an invalidated capture raises, and the attempt would end
+    REJECTED), and the promoted engine answers as the CPU does."""
+    import threading
+    import time
+
+    from fks_tpu_torch.funsearch import template
+    from fks_tpu_torch.obs.telemetry import CompileWatcher
+    from fks_tpu_torch.pipeline import (
+        PromotionConfig, PromotionController, follow_ledger, write_champion,
+    )
+    from fks_tpu_torch.serve import ChampionSpec, ServeEngine, ServeService
+
+    champ, wl, env = _serve_setup(cuda)
+    inc = ServeEngine(ChampionSpec(code=template.fill_template(
+        "score = 1000"), score=0.4), wl, envelope=env, device=cuda)
+    inc.warmup()
+    service = ServeService(inc, max_wait_s=0.002)
+    queries = _serve_queries()
+    errors, answered, stop = [], [0], threading.Event()
+
+    def client():
+        i = 0
+        while not stop.is_set():
+            try:
+                ans = service.submit(
+                    {"pods": queries[i % len(queries)]}).result(timeout=300)
+                assert ans["scheduled"] >= 0
+            except Exception as e:  # noqa: BLE001 — the test's verdict
+                errors.append(f"{type(e).__name__}: {e}")
+                return
+            answered[0] += 1
+            i += 1
+
+    def wait_for(cond, seconds=600):
+        deadline = time.monotonic() + seconds
+        while not cond() and not errors and time.monotonic() < deadline:
+            time.sleep(0.02)
+
+    ctrl = PromotionController(service, wl, ledger_dir=str(tmp_path),
+                               config=PromotionConfig(shadow_queries=4))
+    with CompileWatcher() as w:
+        thread = threading.Thread(target=client)
+        thread.start()
+        try:
+            wait_for(lambda: answered[0] >= 8)
+            stop_poll, poller = follow_ledger(ctrl, interval=0.05)
+            write_champion(str(tmp_path), champ.code, 0.9)
+            wait_for(lambda: service.swaps > 0)
+            after = answered[0]
+            wait_for(lambda: answered[0] >= after + 16)
+            stop_poll.set()
+            poller.join(timeout=300)
+        finally:
+            stop.set()
+            thread.join(timeout=300)
+    service.close()
+    assert not errors, errors
+    assert [r["state"] for r in ctrl.log.records] == [
+        "PENDING", "SHADOW", "PROMOTED"]
+    assert ctrl.log.records[-1]["engine_kind"] == "aot"
+    assert service.engine is not inc and service.engine.champion.score == 0.9
+    assert w.count_in("shadow") > 0
+    assert w.count_in("") == 0, w.summary()
+    cpu = ServeEngine(ChampionSpec(code=champ.code, score=0.9), wl,
+                      envelope=env, device="cpu")
+    for got, want in zip(service.engine.answer_batch(queries),
+                         cpu.answer_batch(queries)):
+        assert got["placements"] == want["placements"]
+        assert abs(got["score"] - want["score"]) <= 2e-6
+
+
+def test_sigterm_drain_with_a_batch_in_flight(cuda, tmp_path):
+    """SIGTERM while the card works through queued batches: the drain
+    completes every Future with the answer the CPU gives, sheds nothing,
+    and persists a state that a new service preloads."""
+    import os
+    import signal
+    import threading
+
+    from fks_tpu_torch.resilience import DrainCoordinator, load_serve_state
+    from fks_tpu_torch.serve import ServeEngine, ServeService
+
+    champ, wl, env = _serve_setup(cuda)
+    eng = ServeEngine(champ, wl, envelope=env, device=cuda)
+    eng.warmup()
+    service = ServeService(eng, max_wait_s=0.002)
+    queries = _serve_queries() * 3
+    futs = [service.submit({"id": f"q{i}", "pods": q})
+            for i, q in enumerate(queries)]
+    state = str(tmp_path / "state.json")
+    dc = DrainCoordinator(service, state_path=state, grace_s=300.0)
+    if threading.current_thread() is threading.main_thread():
+        assert dc.install()
+        try:
+            os.kill(os.getpid(), signal.SIGTERM)
+        finally:
+            dc.uninstall()
+    else:
+        dc.handle_signal()
+    assert dc.requested and all(f.done() for f in futs)
+    assert dc.report["stuck"] is False and dc.report["shed"] == 0
+    cpu = ServeEngine(champ, wl, envelope=env, device="cpu")
+    for fut, want in zip(futs, cpu.answer_batch(queries)):
+        got = fut.result()
+        assert got["placements"] == want["placements"]
+        assert abs(got["score"] - want["score"]) <= 2e-6
+    saved = load_serve_state(state)
+    assert saved["requests_served"] == len(queries)
+    again = ServeService(eng, max_wait_s=0.002)
+    try:
+        assert again.preload_replay(saved["replay"]) == len(queries)
+    finally:
+        again.close()

@@ -80,3 +80,25 @@ def test_chip_smoke_fails_outside_checkout(tmp_path):
                           cwd=tmp_path)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+CONTROL_PLANE = ("pipeline/__init__.py", "pipeline/controller.py",
+                 "pipeline/drills.py", "pipeline/faults.py",
+                 "pipeline/state.py", "resilience/drain.py",
+                 "resilience/drills.py", "portfolio/fleet.py",
+                 "obs/recorder.py", "obs/report.py", "utils/logging.py")
+
+
+def test_control_plane_modules_are_scanned_and_import():
+    """The control plane's modules are in the scan, and each imports on
+    its own with neither JAX nor fks_tpu among its imports."""
+    import importlib
+
+    scanned = set(port_files())
+    for rel in CONTROL_PLANE:
+        path = ROOT / "fks_tpu_torch" / rel
+        assert path in scanned, rel
+        assert not {m for m, _ in imported_roots(path)} & FORBIDDEN, rel
+        mod = "fks_tpu_torch." + rel[:-3].replace("/", ".").replace(
+            ".__init__", "")
+        importlib.import_module(mod)

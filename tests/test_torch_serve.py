@@ -529,7 +529,7 @@ def test_http_round_trip_equals_the_library(engines):
 # ----------------------------------------------------------- waiting options
 
 
-def test_waiting_options_raise(engines):
+def test_waiting_options_raise(engines, tmp_path):
     eng, _ = engines
     from fks_tpu_torch import cli
 
@@ -546,9 +546,12 @@ def test_waiting_options_raise(engines):
     have = torch.cuda.device_count() if torch.cuda.is_available() else 0
     with pytest.raises(ValueError, match="CUDA devices"):
         cli.main(["serve", "--devices", str(have + 1)])
+    # the control plane's options run since it was ported (their runs
+    # are tests/test_torch_pipeline.py's): with an empty ledger they stop
+    # at "no champion" like any serve, no ValueError naming a queue item
     for argv in (["--follow-ledger"], ["--drain-state", "x.json"]):
-        with pytest.raises(ValueError, match="queue 1 item 5"):
-            cli.main(["serve", "--device", "cpu", *argv])
+        assert cli.main(["serve", "--device", "cpu", "--ledger-dir",
+                         str(tmp_path), *argv]) == 2
 
 
 def test_entry_points_default_to_the_card(engines):
@@ -752,3 +755,64 @@ def test_footprint_and_layout_rows_match_fks_tpu():
         layout.record_layout("nope", layout.DEFAULT_LAYOUT_KEY)
     with pytest.raises(ValueError):
         layout.record_layout("serve", "shard[everything]|vmap[]|seg=0")
+
+
+def test_batch_turn_is_reentrant_and_first_come_first_served():
+    """``ServeEngine.exclusive``'s turn: the holder may take it again; a
+    thread that lets go and at once asks again queues behind a thread
+    already waiting (a promotion's next replay waits for the live batch
+    that waited out the last one); a waiter that gives up is passed
+    over."""
+    import time
+
+    from fks_tpu_torch.serve.artifact import _Turn
+
+    turn = _Turn()
+    order = []
+
+    def waiter():
+        with turn:
+            order.append("waiter")
+
+    def wait_for_tickets(n):
+        deadline = time.monotonic() + 30
+        while turn._next_ticket < n and time.monotonic() < deadline:
+            time.sleep(0.001)
+        assert turn._next_ticket == n
+
+    with turn:
+        with turn:  # re-entrant
+            order.append("holder")
+        other = threading.Thread(target=waiter)
+        other.start()
+        wait_for_tickets(2)
+    with turn:  # asked again at once: the waiter goes first
+        order.append("holder again")
+    other.join(timeout=30)
+    assert order == ["holder", "waiter", "holder again"]
+
+    # a waiter interrupted while queued gives its ticket up
+    class GiveUp(Exception):
+        pass
+
+    def interrupted_wait():
+        def boom():
+            raise GiveUp
+        turn._cond.wait = lambda *a, **k: boom()
+        try:
+            with turn:
+                order.append("never")
+        except GiveUp:
+            order.append("gave up")
+
+    with turn:
+        saved_wait = turn._cond.wait
+        quitter = threading.Thread(target=interrupted_wait)
+        quitter.start()
+        quitter.join(timeout=30)
+        turn._cond.wait = saved_wait
+        other = threading.Thread(target=waiter)
+        other.start()
+        wait_for_tickets(6)
+    other.join(timeout=30)
+    assert order[-2:] == ["gave up", "waiter"] and not other.is_alive()
