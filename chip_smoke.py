@@ -120,11 +120,14 @@ Phases (any failure raises and exits non-zero):
    (a) ``ServeEngine`` selftest (8 queries of 4 pods: ok, max_drift 0.0,
    placements equal the unbatched reference) and the pinned answers of
    ``tests/fixtures/serve_pins.json``; (b) graph captures at warmup, then
-   per (pod bucket 16/64/256, lane bucket 1/8) at least 20 warm queries:
+   per (pod bucket 16/64/256, lane bucket 1/8) 20 warm queries (24 at
+   lane bucket 8; 10 at 256 pods x 1 lane, cut from 20 for phase 15):
    p50/p99 per-query latency, steps per batch, ms per step (graph
    replays), H2D bytes per query, and zero captures on the warm path; one
-   1,024-pod query, timed; (c) ``VMServeEngine`` selftest, ``swap_program``
-   to the pins' second champion with zero captures, answers equal to a
+   257-pod query in the 1,024-pod bucket, timed (a 1,024-pod query was
+   cut to make room for phase 15); (c) ``VMServeEngine`` selftest,
+   ``swap_program`` to the pins' second champion with zero captures,
+   answers equal to a
    fresh engine and the pins, and back; (d) ``ServeService`` +
    ``make_http_server``: 3 concurrent ``POST /query`` answered in one batch
    equal (a)'s, ``GET /healthz``; (e) ``ParitySentinel.audit_served`` over
@@ -160,7 +163,35 @@ Phases (any failure raises and exits non-zero):
    holding the incumbent's batch turn) and after the swap.
    Seconds and captures per case, and both kernels' launches in the
    phase (0);
-15. one ``{"kernels": [...]}`` line, then the last line
+15. the command line (``fks_tpu_torch.cli.main`` in process, no
+   ``--cpu``; each command must exit 0; seconds per command, and both
+   kernels' launches counted around each command): (a) ``simulate
+   --policy best_fit --f64`` on the default trace, every field equal to
+   ``golden_default.json`` (floats within 1e-9), its ``--metrics`` rows
+   through ``tools/check_jsonl_schema.py``; (b) ``bench --policies
+   best_fit,first_fit --f64``, the best_fit row equal to (a)'s; (c)
+   ``scale --engine fused`` on 16 nodes x 8,152 synthetic pods at pop
+   256: one kernel launch, score min and max equal to a direct fused
+   population eval; (d) ``scale --engine flat`` on 1,000 nodes x 10,000
+   pods (cut from the command's default 100,000, as phase 10 cuts them)
+   at pop 4: the auto-prefilter keeps k = 0, ``param_score`` launched,
+   events/s from the command's own result (read through a spy on the
+   population eval it builds); (e) ``evolve --fake-llm
+   --profile`` with phase 11 (a)'s loop (the reference config format
+   carries no seed: FakeLLM(seed=0)) on the first 256 pods, its
+   generation rows, population and best held to
+   ``tests/fixtures/evolve_cli_prefix256_pins.json`` (fks_tpu's CLI;
+   float32 scores within 1e-6), the ``__total__`` device_profile record
+   attributing at least 95% of the wall, the run dir through the schema
+   tool, then ``mem --run-dir`` rendering the footprint ladder; (f)
+   ``trace-diff --engines exact,flat --suite default8 --scenario 5``:
+   fks_tpu's exit code 1 and text (the first divergence of the flat
+   engine's retry rule, step 9,457; ``TRACE_DIFF_FAULT1``); (g)
+   ``loadgen --duration 5`` (the hermetic template champion): fks_tpu's
+   four gated keys, no failed request; (h) ``mem
+   --sample`` with the card's watermarks, ``mem --drill vm_swap_leak``
+   at 10 swaps x 40 batches with zero allocator drift;
+16. one ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the fks_tpu package.
@@ -783,43 +814,50 @@ class Rows:
         return [f for k, f in self.rows if k == "span" and f["label"] == label]
 
 
+def pins_close(name, got, want, tol):
+    """``got`` equal to ``want`` through dicts and lists, floats within
+    ``tol``; raises naming the first difference."""
+    if isinstance(want, float) and isinstance(got, float):
+        if abs(got - want) > tol:
+            raise AssertionError(f"{name}: {got!r} vs pin {want!r}")
+    elif isinstance(want, dict):
+        if sorted(got) != sorted(want):
+            raise AssertionError(f"{name}: keys {sorted(got)} vs pin "
+                                 f"{sorted(want)}")
+        for k in want:
+            pins_close(f"{name}.{k}", got[k], want[k], tol)
+    elif isinstance(want, list):
+        if len(got) != len(want):
+            raise AssertionError(f"{name}: {got} vs pin {want}")
+        for i, (a, b) in enumerate(zip(got, want)):
+            pins_close(f"{name}[{i}]", a, b, tol)
+    elif got != want:
+        raise AssertionError(f"{name}: {got!r} vs pin {want!r}")
+
+
+def sha(code):
+    """The sha1 of a candidate's canonical key, as the pins name it."""
+    import hashlib
+
+    from fks_tpu_torch.funsearch import transpiler
+
+    return hashlib.sha1(transpiler.canonical_key(code).encode()).hexdigest()
+
+
 def held_to_pins(name, fs, pin):
     """A FunSearch run against its fks_tpu pins: per generation the stats
     without their time fields, the final population and best as
     (canonical-key sha1, score); integers exact, floats within 1e-9."""
     import dataclasses
-    import hashlib
-
-    from fks_tpu_torch.funsearch import transpiler
-
-    def sha(code):
-        return hashlib.sha1(transpiler.canonical_key(code).encode()).hexdigest()
-
-    def close(got, want, where):
-        if isinstance(want, float) and isinstance(got, float):
-            if abs(got - want) > 1e-9:
-                raise AssertionError(f"{name} {where}: {got!r} vs fks_tpu "
-                                     f"pin {want!r}")
-        elif isinstance(want, dict):
-            if sorted(got) != sorted(want):
-                raise AssertionError(f"{name} {where}: keys differ")
-            for k in want:
-                close(got[k], want[k], f"{where}.{k}")
-        elif isinstance(want, list):
-            if len(got) != len(want):
-                raise AssertionError(f"{name} {where}: {got} vs pin {want}")
-            for i, (a, b) in enumerate(zip(got, want)):
-                close(a, b, f"{where}[{i}]")
-        elif got != want:
-            raise AssertionError(f"{name} {where}: {got!r} vs fks_tpu pin "
-                                 f"{want!r}")
 
     gens = [{k: v for k, v in dataclasses.asdict(h).items()
              if k not in EVOLVE_TIME_FIELDS} for h in fs.history]
-    close(gens, pin["generations"], "generations")
-    close([[sha(c), sc] for c, sc in fs.population], pin["population"],
-          "population")
-    close([sha(fs.best[0]), fs.best[1]], pin["best"], "best")
+    pins_close(f"{name} generations", gens, pin["generations"], 1e-9)
+    pins_close(f"{name} population",
+               [[sha(c), sc] for c, sc in fs.population],
+               pin["population"], 1e-9)
+    pins_close(f"{name} best", [sha(fs.best[0]), fs.best[1]], pin["best"],
+               1e-9)
 
 
 def graph_report(*caches):
@@ -1356,7 +1394,9 @@ def serve_phase(dev, card) -> dict:
             size = eng.envelope.min_real_pods(bucket)
             size = 4 if bucket == 16 else size
             for lanes in (1, 8):
-                count = 20 if lanes == 1 else 24
+                # 10 one-lane queries at the 256-pod bucket (4-5 s each;
+                # 20 before phase 15 needed the room)
+                count = (10 if bucket == 256 else 20) if lanes == 1 else 24
                 lat, replays, steps = [], 0, []
                 h2d0, q0 = eng.h2d_bytes_total, eng.h2d_queries
                 for b0 in range(0, count, lanes):
@@ -1395,19 +1435,22 @@ def serve_phase(dev, card) -> dict:
                              "on the warm path")
     log(f"[serve] (b) warm path: 0 graph captures over "
         f"{sum(r['queries'] for r in rows.values())} queries; card {card}")
-    big = base[:1024]
+    # the top pod bucket: a 257-pod query (the smallest it takes; a
+    # 1,024-pod one took 70-84 s, cut to make room for phase 15)
+    big = base[:257]
     with CompileWatcher() as w:
         t0 = time.perf_counter()
         ans = eng.answer_batch([big])[0]
         big_s = time.perf_counter() - t0
     graph = eng.compiled_for(1, 1024).graphs[0]
     if not np.isfinite(ans["score"]) or ans["scheduled"] <= 0:
-        raise AssertionError(f"the 1,024-pod query answered {ans}")
-    log(f"[serve] (b) one 1,024-pod query: {big_s:.1f} s with "
+        raise AssertionError(f"the 257-pod query answered {ans}")
+    log(f"[serve] (b) one 257-pod query (pod bucket 1,024): {big_s:.1f} s "
+        f"with "
         f"{w.backend_compile_count} capture ({w.backend_compile_seconds:.1f}"
         f" s), {graph.chunk.replays} replays, {ans['events']} events, "
         f"scheduled {ans['scheduled']}, score {ans['score']:.6f}")
-    rows["1024x1"] = {"seconds": big_s, "events": ans["events"],
+    rows["257in1024x1"] = {"seconds": big_s, "events": ans["events"],
                       "replays": graph.chunk.replays,
                       "captures": w.backend_compile_count,
                       "capture_s": w.backend_compile_seconds}
@@ -2145,6 +2188,327 @@ def control_plane_phase(dev, card) -> dict:
     return out
 
 
+#: phase 15 (e): the evolve loop's pods, and the float tolerance of its
+#: pins (fks_tpu's CLI scores in float32, SimConfig(); the card and XLA's
+#: CPU backend sum in other orders)
+CLI_EVOLVE_PODS = 256
+CLI_EVOLVE_TOL = 1e-6
+#: phase 15 (f): fks_tpu's ``cli trace-diff --cpu --suite default8
+#: --scenario 5`` on the default trace (exit 1: the flat engine's retry
+#: rule differs from the exact engine's by design); the port prints the
+#: same (tests/test_torch_cli.py holds both to this text)
+TRACE_DIFF_FAULT1 = """\
+trace-diff: exact vs flat  [best_fit@default8[5:fault1]]
+  exact: 16385 steps, fitness 0.446278
+  flat: 16462 steps, fitness 0.459356
+  FIRST DIVERGENCE at step 9457 (field: kind)
+    engine                   kind     pod node        score       margin pending
+    exact                    CREATE  4746    9  8040.000000   489.000000    3449
+    flat                     RETRY   4727   -1     0.000000     0.000000    3449
+"""
+#: phase 15 (c) and (d): the synthetic clusters of the two scale runs
+#: (nodes, pods)
+CLI_FUSED_SHAPE = (16, 8152)
+CLI_FLAT_SHAPE = (1000, 10000)
+
+
+def cli_phase(dev, card) -> dict:
+    """Phase 15 (module docstring): the command line on the card, in
+    process through ``fks_tpu_torch.cli.main`` with no ``--cpu``; every
+    command's exit code must be 0 (a nonzero one raises). Returns the
+    seconds of each command and the numbers the summary line carries."""
+    import contextlib
+    import io
+    import tempfile
+
+    import torch
+
+    from fks_tpu_torch import cli
+    from fks_tpu_torch.data import TraceParser
+    from fks_tpu_torch.data.synthetic import synthetic_workload
+    from fks_tpu_torch.models import parametric
+    from fks_tpu_torch.ops import _ext
+    from fks_tpu_torch.parallel import make_population_eval
+    from fks_tpu_torch.sim import fused
+
+    _ext.fused_sim_library()
+    _ext.param_score_library()
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    work = Path(tmp.name)
+    out = {"seconds": {}, "launches": {"fused_sim": 0, "param_score": 0},
+           "launches_by_command": {}}
+
+    def counts():
+        return {"fused_sim": fused.fused_sim.launches,
+                "param_score": parametric.score.launches}
+
+    def run(tag, argv, want_rc=0):
+        """``cli.main(argv)`` timed, its kernel launches counted (read
+        just before and just after: the comparisons' launches stay out);
+        its stdout; raises unless it exits ``want_rc``."""
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        before = counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        delta = {k: v - before[k] for k, v in counts().items()}
+        out["launches_by_command"][tag] = delta
+        for k, v in delta.items():
+            out["launches"][k] += v
+        out["seconds"][tag] = secs
+        if rc != want_rc:
+            raise AssertionError(f"cli {' '.join(argv)} exited {rc}:\n"
+                                 f"{buf.getvalue()}")
+        log(f"[cli] ({tag}) {' '.join(argv[:3])} ...: {secs:.2f} s; "
+            f"card {card}")
+        return buf.getvalue()
+
+    def schema_ok(*args):
+        proc = subprocess.run(
+            [sys.executable, str(ROOT / "tools" / "check_jsonl_schema.py"),
+             *args], capture_output=True, text=True, timeout=120)
+        if proc.returncode != 0:
+            raise AssertionError(f"check_jsonl_schema {args}: "
+                                 f"{proc.stdout}{proc.stderr}")
+
+    def rows(path):
+        return [json.loads(line) for line in Path(path).read_text()
+                .splitlines()]
+
+    # (a) simulate best_fit in float64 on the default trace, held to the
+    # golden fixture
+    golden = json.loads((ROOT / "tests" / "fixtures"
+                         / "golden_default.json").read_text())
+    want = golden["policies"]["best_fit"]
+    m = work / "simulate.jsonl"
+    shown = json.loads(run("a", ["simulate", "--policy", "best_fit",
+                                 "--f64", "--metrics", str(m)]))
+    (sim_row,) = rows(m)
+    for k, v in want.items():
+        if isinstance(v, list):
+            continue
+        if isinstance(v, float) and abs(sim_row[k] - v) > 1e-9 or \
+                not isinstance(v, float) and sim_row[k] != v:
+            raise AssertionError(f"(a) simulate {k}: {sim_row[k]} vs "
+                                 f"golden {v}")
+    if int(shown["scheduled"]) != want["scheduled_pods"] \
+            or shown["events"] != want["events_processed"]:
+        raise AssertionError(f"(a) simulate printed {shown}")
+    schema_ok("--require", "ts,kind", str(m))
+    log(f"[cli] (a) simulate best_fit --f64: score "
+        f"{sim_row['policy_score']:.12f}, {sim_row['events_processed']} "
+        f"events, every field equal to golden_default.json (floats within "
+        f"1e-9); --metrics rows pass tools/check_jsonl_schema.py")
+
+    # (b) bench best_fit,first_fit in float64: the best_fit row is (a)'s
+    m = work / "bench.jsonl"
+    table = run("b", ["bench", "--policies", "best_fit,first_fit", "--f64",
+                      "--metrics", str(m)])
+    bench = {r["policy"]: r for r in rows(m)}
+    timed = {"ts", "wall_s", "kind"}
+    if {k: v for k, v in bench["best_fit"].items() if k not in timed} != \
+            {k: v for k, v in sim_row.items() if k not in timed}:
+        raise AssertionError(f"(b) bench best_fit {bench['best_fit']} != "
+                             f"simulate {sim_row}")
+    schema_ok("--require", "ts,kind", str(m))
+    log(f"[cli] (b) bench: best_fit row equal to (a), first_fit "
+        f"{bench['first_fit']['policy_score']:.12f}\n{table.rstrip()}")
+
+    # (c) scale on the fused kernel, 16 nodes x 8,152 synthetic pods, pop
+    # 256: one launch, the scores of a direct population eval
+    nodes, pods = CLI_FUSED_SHAPE
+    shown = json.loads(run("c", [
+        "scale", "--engine", "fused", "--nodes-count", str(nodes),
+        "--pods-count", str(pods), "--pop", str(POP)]))
+    launches = out["launches_by_command"]["c"]["fused_sim"]
+    if launches != 1:
+        raise AssertionError(f"(c) scale --engine fused launched the "
+                             f"kernel {launches} times, not once")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    res = make_population_eval(
+        synthetic_workload(nodes, pods, seed=0), engine="fused",
+        device=dev)(parametric.init_population(gen, POP, noise=0.1))
+    for k, v in (("score_min", res.policy_score.min()),
+                 ("score_max", res.policy_score.max())):
+        if shown[k] != round(float(v), 4):
+            raise AssertionError(f"(c) scale {k} {shown[k]} != direct eval "
+                                 f"{float(v)}")
+    out["fused"] = {"evals_per_sec": shown["evals_per_sec"],
+                    "wall_s": shown["wall_s"], "launches": launches}
+    log(f"[cli] (c) scale --engine fused, {nodes} x {pods}, pop {POP}: "
+        f"{shown['evals_per_sec']} evals/s ({shown['wall_s']} s: the "
+        f"eval call, the kernel and the result's fields; the plan is built "
+        f"before it), 1 launch, score min/max {shown['score_min']}/"
+        f"{shown['score_max']} equal to a direct fused eval")
+
+    # (d) scale on the flat engine at 1,000 nodes x 10,000 pods, pop 4,
+    # the auto-prefilter probing parametric.score
+    # the command's own SimResult (a spy on the population eval it builds)
+    # gives the event count; scale prints none
+    import fks_tpu_torch.parallel as par
+
+    nodes, pods = CLI_FLAT_SHAPE
+    results, real_eval = [], par.make_population_eval
+
+    def spy(*args, **kw):
+        evaluate = real_eval(*args, **kw)
+
+        def kept(pop):
+            results.append(evaluate(pop))
+            return results[-1]
+        return kept
+
+    par.make_population_eval = spy
+    try:
+        shown = json.loads(run("d", [
+            "scale", "--engine", "flat", "--nodes-count", str(nodes),
+            "--pods-count", str(pods), "--pop", "4", "--seed", "1"]))
+    finally:
+        par.make_population_eval = real_eval
+    ps_launches = out["launches_by_command"]["d"]["param_score"]
+    if not ps_launches:
+        raise AssertionError("(d) scale never launched param_score")
+    if shown["node_prefilter_k"] != 0 or not shown["prefilter_auto"]:
+        raise AssertionError(f"(d) the auto-prefilter picked k = "
+                             f"{shown['node_prefilter_k']}, not 0")
+    (res,) = results
+    events = int(res.events_processed.sum())
+    if shown["score_max"] != round(float(res.policy_score.max()), 4):
+        raise AssertionError(f"(d) scale score_max {shown['score_max']} "
+                             f"!= its eval's "
+                             f"{float(res.policy_score.max())}")
+    out["flat_1k"] = {"events": events, "wall_s": shown["wall_s"],
+                      "events_per_s": events / shown["wall_s"],
+                      "param_score_launches": ps_launches}
+    log(f"[cli] (d) scale --engine flat, {nodes} x {pods}, pop 4: auto "
+        f"k = 0, "
+        f"{ps_launches} param_score wrapper calls, {events} events in "
+        f"{shown['wall_s']} s = {events / shown['wall_s']:.1f} events/s "
+        f"with the capture (SimConfig() as the command builds it; phase "
+        f"10's dense run has first_fit lanes and track_ctime=False)")
+
+    # (e) evolve --fake-llm --profile on the first 256 pods, held to
+    # fks_tpu's CLI pins; then mem renders the run's memory view
+    pins = json.loads((ROOT / "tests" / "fixtures"
+                       / "evolve_cli_prefix256_pins.json").read_text())
+    (work / "config.json").write_text(json.dumps(pins["config"]))
+    run_dir = work / "evolve_run"
+    keep = cli._parse_workload
+    cli._parse_workload = lambda args: TraceParser().parse_workload(
+        max_pods=CLI_EVOLVE_PODS)
+    try:
+        run("e", ["evolve", "--fake-llm", "--profile", "--config",
+                  str(work / "config.json"), "--checkpoint",
+                  str(work / "ck.json"), "--metrics",
+                  str(work / "evolve.jsonl"), "--run-dir", str(run_dir)])
+    finally:
+        cli._parse_workload = keep
+
+    ck = json.loads((work / "ck.json").read_text())
+    gens = [{k: v for k, v in r.items()
+             if k not in EVOLVE_TIME_FIELDS + ("ts", "kind")}
+            for r in rows(work / "evolve.jsonl")]
+    pins_close("(e) generations", gens, pins["generations"],
+               CLI_EVOLVE_TOL)
+    pins_close("(e) population", [[sha(p["code"]), p["score"]]
+                                  for p in ck["population"]],
+               pins["population"], CLI_EVOLVE_TOL)
+    pins_close("(e) best", [sha(ck["best"]["code"]), ck["best"]["score"]],
+               pins["best"], CLI_EVOLVE_TOL)
+    schema_ok("--run-dir", str(run_dir))
+    metrics = rows(run_dir / "metrics.jsonl")
+    (total,) = [r for r in metrics if r["kind"] == "device_profile"
+                and r["stage"] == "__total__"]
+    if total["attributed_fraction"] < 0.95:
+        raise AssertionError(f"(e) the profiler attributed "
+                             f"{total['attributed_fraction']} of the wall")
+    stages = {}
+    for r in metrics:
+        if r["kind"] == "device_profile" and r["stage"] != "__total__" \
+                and r.get("depth", 0) == 0:
+            stages[r["stage"]] = stages.get(r["stage"], 0.0) + \
+                r["wall_seconds"]
+    view = run("e-mem", ["mem", "--run-dir", str(run_dir)])
+    if "footprint ladder" not in view:
+        raise AssertionError(f"(e) mem rendered no footprint:\n{view}")
+    out["evolve"] = {"attributed_fraction": total["attributed_fraction"],
+                     "measured_wall_s": total["measured_wall_seconds"],
+                     "capture_s": total["compile_seconds"],
+                     "stage_seconds": stages,
+                     "best": ck["best"]["score"]}
+    log(f"[cli] (e) evolve --fake-llm --profile, {len(gens)} generations "
+        f"on the first {CLI_EVOLVE_PODS} pods: best "
+        f"{ck['best']['score']:.12f}; generation rows, population and best "
+        f"equal fks_tpu's CLI pins (floats within {CLI_EVOLVE_TOL}); "
+        f"__total__ attributes {total['attributed_fraction']:.4f} of "
+        f"{total['measured_wall_seconds']:.2f} s "
+        f"({total['compile_seconds']:.2f} s of graph captures); stage "
+        f"seconds "
+        f"{ {k: round(v, 2) for k, v in stages.items()} }; run dir passes "
+        f"the schema tool; mem:\n{view.rstrip()}")
+
+    # (f) trace-diff on a fault-injected default8 scenario: fks_tpu's
+    # exit code and text (fitness within 1e-6, float32 on the card)
+    shown = run("f", ["trace-diff", "--engines", "exact,flat", "--suite",
+                      "default8", "--scenario", "5"], want_rc=1)
+    for got, want in zip(shown.splitlines(),
+                         TRACE_DIFF_FAULT1.splitlines()):
+        if "fitness" in want:
+            name, value = want.rsplit(" ", 1)
+            if not got.startswith(name + " ") or \
+                    abs(float(got.rsplit(" ", 1)[1]) - float(value)) > 1e-6:
+                raise AssertionError(f"(f) {got!r} vs fks_tpu {want!r}")
+        elif got != want:
+            raise AssertionError(f"(f) {got!r} vs fks_tpu {want!r}")
+    if len(shown.splitlines()) != len(TRACE_DIFF_FAULT1.splitlines()):
+        raise AssertionError(f"(f) trace-diff printed:\n{shown}")
+    log(f"[cli] (f) exit 1, fks_tpu's first divergence (the flat engine's "
+        f"retry rule):\n{shown.rstrip()}")
+
+    # (g) loadgen for 5 s with the hermetic template champion
+    summary = json.loads(run("g", ["loadgen", "--duration", "5"]))
+    gated = ("loadgen_qps", "loadgen_p99_ms", "loadgen_shed_rate",
+             "loadgen_fairness_index")
+    if any(k not in summary for k in gated) or summary["errors"] \
+            or not summary["completed"]:
+        raise AssertionError(f"(g) loadgen summary {summary}")
+    out["loadgen"] = {k: summary[k] for k in gated + ("requests",
+                                                      "completed")}
+    log(f"[cli] (g) loadgen 5 s: {summary['requests']} requests, "
+        f"{summary['completed']} completed, 0 failed, "
+        + ", ".join(f"{k} {summary[k]}" for k in gated))
+
+    # (h) one watermark sample, and the VM swap leak drill (reduced)
+    sample = json.loads(run("h-sample", ["mem", "--sample"]))
+    devs = [d for d in sample["devices"] if "bytes_in_use" in d]
+    if not devs or any(d["platform"] != "gpu" or not d["bytes_limit"]
+                       for d in devs):
+        raise AssertionError(f"(h) mem --sample: {sample}")
+    drill = json.loads(run("h-drill", ["mem", "--drill", "vm_swap_leak",
+                                       "--swaps", "10", "--batches",
+                                       "40"]))
+    if not drill["ok"] or drill["drift_count"] or drill["drift_bytes"]:
+        raise AssertionError(f"(h) vm_swap_leak: {drill}")
+    out["mem"] = {"in_use_bytes": devs[0]["bytes_in_use"],
+                  "peak_bytes": devs[0]["peak_bytes_in_use"],
+                  "limit_bytes": devs[0]["bytes_limit"],
+                  "drill_baseline_count": drill["baseline_count"],
+                  "drill_baseline_bytes": drill["baseline_bytes"]}
+    log(f"[cli] (h) mem --sample: {devs[0]['bytes_in_use']} B in use, peak "
+        f"{devs[0]['peak_bytes_in_use']} B, limit {devs[0]['bytes_limit']} "
+        f"B; vm_swap_leak 10 swaps x 40 batches: drift 0 blocks / 0 bytes "
+        f"over {drill['baseline_count']} live allocator blocks")
+    tmp.cleanup()
+    out["total_s"] = time.perf_counter() - t_phase
+    log(f"[cli] phase {out['total_s']:.1f} s; card {card}")
+    return out
+
+
 def main() -> int:
     if not (ROOT / "fks_tpu_torch" / "csrc" / "fused_sim.cu").is_file():
         raise SystemExit("chip_smoke.py must run from a checkout that holds "
@@ -2391,6 +2755,18 @@ def main() -> int:
         f"control plane serves code champions: VM programs and the "
         f"transpiled tier, no hand kernel)")
 
+    # ---- 15. the command line
+    fused.fused_sim.launches = parametric.score.launches = 0
+    summary["cli"] = cli_phase(dev, card)
+    cli_launches = summary["cli"]["launches"]
+    if not all(cli_launches.values()):
+        raise AssertionError(f"phase 15 left a kernel unlaunched: "
+                             f"{cli_launches}")
+    ps_launches["15"] = cli_launches["param_score"]
+    log(f"[cli] kernel launches in phase 15 (the commands' own, by "
+        f"command {summary['cli']['launches_by_command']}): "
+        f"{cli_launches}")
+
     # ---- summary
     log(f"[summary] {json.dumps(summary)}")
     log(f"[card] {card}")
@@ -2417,7 +2793,8 @@ def main() -> int:
         "pop": POP, "check": "ok",
         "launches_by_phase": {"4": launches,
                               "13": mesh_launches["fused_sim"],
-                              "14": control_launches["fused_sim"]},
+                              "14": control_launches["fused_sim"],
+                              "15": cli_launches["fused_sim"]},
         "mesh_launches_per_eval": {
             "1_shard": summary["mesh"]["launches_per_eval_1"],
             "4_logical_shards": summary["mesh"]["launches_per_eval_4"]},

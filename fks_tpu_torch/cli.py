@@ -1,36 +1,52 @@
-"""The port's command line: ``python -m fks_tpu_torch.cli serve ...``,
-``... portfolio ...`` and ``... pipeline ...``.
+"""The port's command line: ``python -m fks_tpu_torch.cli <command> ...``.
 
-Port of the ``serve``, ``portfolio`` and ``pipeline`` subcommands of
-fks_tpu.cli (fks_tpu/cli.py:589-785, :896-1051 and :1054-1082, arguments
-:1812-1927, :1970-2047). ``serve`` serves a pinned champion as a warm
-what-if query engine — build or load an artifact, optionally capture
-every shape bucket up front, then answer queries over stdin/JSONL, a
-file, or a localhost HTTP listener; ``--selftest N`` instead runs the
-batched-vs-unbatched exact-parity sweep and exits nonzero on any drift.
-``--follow-ledger`` runs the promotion controller beside serving (resume
-the last surviving promotion, shadow-gate each new ledger champion,
-hot-swap, roll back on SLO burn); ``--drain-state PATH`` drains and
-persists the replay buffer on SIGTERM and preloads it on the next start.
-``portfolio`` serves N resident champions from one set of graphs with
-per-request routing; ``--selftest N`` runs the per-slot and mixed-batch
-parity sweep, then swaps one slot out and back under live traffic and
-fails on any capture. ``pipeline`` prints the promotion log's status,
-or with ``--drill`` runs the fault-injection drill matrix and exits
-nonzero on any failed drill. ``--run-dir DIR`` flight-records any of the
-three into fks_tpu's run-directory layout.
+Port of fks_tpu.cli's run commands (fks_tpu/cli.py; the parsers at
+:1668-2257), with fks_tpu's flags, defaults, printed JSON and tables,
+``--metrics`` rows and exit codes:
 
-Runs on the card (``--device cuda``, the default) or, with ``--device
-cpu`` (or ``--cpu``), on the plain PyTorch path. ``--devices N`` shards
-the lane axis over a mesh: on the card the first N CUDA devices (it
-raises when there are fewer), on the CPU N logical shards of the one CPU
-device. fks_tpu's ``--devices`` instead sizes a virtual CPU device mesh
-and requires ``--cpu``. fks_tpu's other subcommands and the metrics file
-wait for ROADMAP queue 1 item 6.
+    bench [--policies a,b,...] [--trace F] [--nodes F] [--f64]
+    simulate --policy best_fit [--f64] [--validate]
+    evolve [--config F] [--fake-llm] [--checkpoint F] [--wal F] [--profile]
+    scale [--nodes-count N] [--pods-count P] [--pop C] [--code-pop K]
+    serve [--champion F] [--queries F | --http PORT | --selftest N]
+    loadgen [--tenants SPEC] [--duration S] [--http [PORT]]
+    portfolio [--champion F ...] [--selftest N | --http PORT]
+    pipeline [--drill]
+    trace-diff --engines exact,flat [--policy P | --code F] [--scenario I]
+    scenarios [--suite NAME [--scenario I]]
+    mem [--run-dir DIR | --sample | --drill NAME]
+    traces
+
+``bench`` prints the policy table, ``simulate`` one policy's JSON,
+``evolve`` runs FunSearch (``--profile`` attributes its wall time per
+stage, ``obs.profiler``), ``scale`` times a synthetic population run,
+``loadgen`` drives a multi-tenant arrival mix against a warm serve
+service, ``trace-diff`` replays one policy through two engines and
+reports the first divergent step (exit 0 none, 1 divergence, 2 error),
+``scenarios`` lists or describes scenario suites, ``mem`` renders a run's
+memory view, takes one watermark sample or runs a memory drill, and
+``traces`` lists the trace files. ``serve``, ``portfolio`` and
+``pipeline`` serve champions, a routed portfolio of them and the
+promotion pipeline. Every command but ``trace-diff`` and ``traces``
+takes fks_tpu's common flags: ``--cpu``, ``--metrics F`` (JSONL metric
+rows), ``--run-dir DIR`` (flight-record the run in fks_tpu's layout) and
+``--engine``.
+
+Every command runs on the card (``--device cuda``, the default) and
+raises without one; ``--cpu`` (or ``--device cpu``) runs the plain
+PyTorch path on the CPU. ``--devices N`` shards the lane axis over a
+mesh: on the card the first N CUDA devices (it raises when there are
+fewer), on the CPU N logical shards of the one CPU device. fks_tpu's
+``--devices`` instead sizes a virtual CPU device mesh and requires
+``--cpu``. ``scale`` draws its population from ``--seed`` with a
+``torch.Generator``, so its weights, and with them its scores, differ
+from fks_tpu's ``jax.random`` draw.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import json
 import os
 import sys
@@ -44,7 +60,7 @@ def _parse_workload(args):
 
 
 def _device(args) -> str:
-    return "cpu" if args.cpu else args.device
+    return "cpu" if args.cpu else getattr(args, "device", "cuda")
 
 
 def _mesh(args):
@@ -59,6 +75,17 @@ def _mesh(args):
     return population_mesh(cuda_devices(args.devices))
 
 
+def _metrics_writer(args):
+    """Context manager: a MetricsWriter when ``--metrics`` was given
+    (opened up front so bad paths fail fast, closed on every exit path),
+    else a null context yielding None."""
+    if getattr(args, "metrics", ""):
+        from fks_tpu_torch.utils.logging import MetricsWriter
+
+        return MetricsWriter(args.metrics)
+    return contextlib.nullcontext(None)
+
+
 def _flight_recorder(args, command):
     """Context manager installing the process-wide flight recorder when
     ``--run-dir`` was given (``obs.recording``), else the shared
@@ -66,10 +93,446 @@ def _flight_recorder(args, command):
     before any device work."""
     from fks_tpu_torch import obs
 
-    if not args.run_dir:
+    if not getattr(args, "run_dir", ""):
         return obs.recording(obs.NULL)
     return obs.recording(obs.FlightRecorder(
         args.run_dir, meta={"command": command, "argv": sys.argv[1:]}))
+
+
+def _result_row(name, res, wall):
+    return {
+        "policy": name,
+        "score": round(float(res.policy_score), 4),
+        "scheduled": f"{int(res.scheduled_pods)}",
+        "cpu%": round(100 * float(res.avg_cpu_utilization), 1),
+        "mem%": round(100 * float(res.avg_memory_utilization), 1),
+        "gpu%": round(100 * float(res.avg_gpu_count_utilization), 1),
+        "milli%": round(100 * float(res.avg_gpu_memory_utilization), 1),
+        "frag": round(float(res.gpu_fragmentation_score), 3),
+        "snaps": int(res.num_snapshots),
+        "events": int(res.events_processed),
+        "max_nodes": int(res.max_nodes),
+        "wall_s": round(wall, 3),
+    }
+
+
+def _print_table(rows):
+    if not rows:
+        return
+    cols = list(rows[0].keys())
+    widths = {c: max(len(c), *(len(str(r[c])) for r in rows)) for c in cols}
+    line = "  ".join(c.rjust(widths[c]) for c in cols)
+    print(line)
+    print("-" * len(line))
+    for r in rows:
+        print("  ".join(str(r[c]).rjust(widths[c]) for c in cols))
+
+
+def _pick_simulate(args):
+    from fks_tpu_torch.sim import get_engine
+    return get_engine(args.engine).simulate
+
+
+def cmd_bench(args) -> int:
+    """The reference benchmark table: every requested policy against the
+    workload, with wall time (fks_tpu/cli.py:194)."""
+    import torch
+
+    from fks_tpu_torch import obs
+    from fks_tpu_torch.models import zoo
+    from fks_tpu_torch.obs.telemetry import record_devices
+    from fks_tpu_torch.sim.engine import SimConfig
+    from fks_tpu_torch.utils.logging import result_record
+
+    simulate = _pick_simulate(args)
+    wl = _parse_workload(args)
+    names = (args.policies.split(",") if args.policies else list(zoo.ZOO))
+    dtype = torch.float64 if args.f64 else torch.float32
+    cfg = SimConfig(score_dtype=dtype, validate_invariants=args.validate)
+    print(f"workload: {wl.num_nodes} nodes x {wl.num_pods} pods "
+          f"({args.nodes} x {args.trace})", file=sys.stderr)
+    rows = []
+    with _flight_recorder(args, "bench") as rec, \
+            obs.watch_compiles(rec), _metrics_writer(args) as metrics:
+        if rec.enabled:
+            rec.annotate_meta(engine=args.engine, trace=args.trace,
+                              workload={"nodes": wl.num_nodes,
+                                        "pods": wl.num_pods})
+            record_devices(rec)
+        for name in names:
+            if name not in zoo.ZOO:
+                print(f"unknown policy {name!r}; have {list(zoo.ZOO)}",
+                      file=sys.stderr)
+                return 2
+            with obs.span("policy", policy=name) as t:
+                res = t.sync(simulate(wl, zoo.ZOO[name](dtype=dtype), cfg,
+                                      device=_device(args)))
+            wall = t.seconds
+            rows.append(_result_row(name, res, wall))
+            if metrics:
+                metrics.write("bench", result_record(res), policy=name,
+                              wall_s=wall, trace=args.trace, nodes=args.nodes)
+            rec.metric("bench", result_record(res), policy=name,
+                       wall_s=wall, trace=args.trace, nodes=args.nodes)
+            if args.validate and int(res.invariant_violations):
+                print(f"WARNING: {name}: {int(res.invariant_violations)} "
+                      "invariant violations", file=sys.stderr)
+    _print_table(rows)
+    return 0
+
+
+def cmd_simulate(args) -> int:
+    """One policy, detailed JSON (fks_tpu/cli.py:243)."""
+    import torch
+
+    from fks_tpu_torch import obs
+    from fks_tpu_torch.models import zoo
+    from fks_tpu_torch.sim.engine import SimConfig
+    from fks_tpu_torch.utils.logging import result_record
+
+    simulate = _pick_simulate(args)
+    wl = _parse_workload(args)
+    dtype = torch.float64 if args.f64 else torch.float32
+    cfg = SimConfig(score_dtype=dtype, validate_invariants=args.validate)
+    with _flight_recorder(args, "simulate") as rec, \
+            obs.watch_compiles(rec), \
+            _metrics_writer(args) as metrics:  # up front: bad paths fail fast
+        with obs.span("simulate", policy=args.policy) as t:
+            res = t.sync(simulate(wl, zoo.ZOO[args.policy](dtype=dtype), cfg,
+                                  device=_device(args)))
+        wall = t.seconds
+        n_pods = wl.num_pods
+        gpu_pods = int((wl.pods.num_gpu[:n_pods] > 0).sum())
+        out = _result_row(args.policy, res, wall)
+        out.update({
+            "gpu_pods": gpu_pods, "cpu_only_pods": n_pods - gpu_pods,
+            "success_rate": round(
+                100 * int(res.scheduled_pods) / max(1, n_pods), 2),
+            "failed": bool(res.failed), "truncated": bool(res.truncated),
+            "invariant_violations": int(res.invariant_violations),
+        })
+        if metrics:
+            metrics.write("simulate", result_record(res), policy=args.policy,
+                          wall_s=wall, trace=args.trace, nodes=args.nodes)
+        rec.metric("simulate", result_record(res), policy=args.policy,
+                   wall_s=wall, trace=args.trace, nodes=args.nodes)
+    print(json.dumps(out, indent=2))
+    return 0
+
+
+def _divergence_bound(trace: str, path: str = ""):
+    """Latest measured flat-vs-exact divergence for ``trace`` from the
+    divergence audit (``obs.watchdog.audit_main``'s JSONL):
+    ``(drift, cascades)`` where drift is the arithmetic max|d| with
+    retry-cascade rows excluded (falling back to max|d| for rows written
+    before cascades were counted) and cascades counts panel policies
+    whose flat run blew the event budget. None when no audit row
+    exists (fks_tpu/cli.py:285)."""
+    path = path or os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        "benchmarks", "results", "divergence_audit.jsonl")
+    found = None
+    try:
+        with open(path) as f:
+            for line in f:
+                try:
+                    row = json.loads(line)
+                except json.JSONDecodeError:
+                    continue
+                if row.get("trace") == trace and \
+                        row.get("max_abs_d") is not None:
+                    found = row  # latest row wins
+    except OSError:
+        return None
+    if found is None:
+        return None
+    drift = found.get("max_drift")
+    if drift is None:
+        drift = found["max_abs_d"]
+    return float(drift), int(found.get("flat_cascades", 0))
+
+
+def cmd_evolve(args) -> int:
+    """The FunSearch evolution loop, with a hermetic ``--fake-llm`` mode,
+    checkpoint/resume and the generation WAL (fks_tpu/cli.py:318)."""
+    from fks_tpu_torch.funsearch import EvolutionConfig, FakeLLM
+    from fks_tpu_torch.funsearch import evolution as evo
+    from fks_tpu_torch.sim.engine import SimConfig
+
+    cfg = (EvolutionConfig.from_json(args.config) if args.config
+           else EvolutionConfig())
+    for flag, field in (("generations", "generations"),
+                        ("parametric_rounds", "parametric_rounds"),
+                        ("parity_sample", "parity_sample"),
+                        ("parity_tol", "parity_tol"),
+                        ("suite", "scenario_suite"),
+                        ("robust_agg", "robust_aggregation"),
+                        ("budget", "budget_schedule"),
+                        ("budget_eta", "budget_eta"),
+                        ("probe_suite", "probe_suite"),
+                        ("probe_steps", "probe_steps")):
+        if getattr(args, flag) is not None:
+            setattr(cfg, field, getattr(args, flag))
+    if args.wal and not args.checkpoint:
+        print("note: --wal without --checkpoint only protects the first "
+              "generation; pass --checkpoint so every generation boundary "
+              "is durable", file=sys.stderr)
+    backend = FakeLLM(seed=cfg.seed) if args.fake_llm else None
+    if backend is None and not cfg.llm.api_key:
+        print("no API key in config; use --fake-llm for hermetic runs",
+              file=sys.stderr)
+        return 2
+    if args.engine != "exact":
+        # search on a fast engine ranks by a fitness that can differ from
+        # the exact replica's; surface the bound measured on this trace
+        bound = _divergence_bound(args.trace)
+        if bound is not None:
+            drift, cascades = bound
+            casc = (f"; {cascades} panel polic"
+                    f"{'y' if cascades == 1 else 'ies'} hit a retry "
+                    "cascade (flat score 0 — culled, never over-promoted)"
+                    if cascades else "")
+            print(f"note: measured flat-vs-exact drift on {args.trace}: "
+                  f"max|d|={drift:.4f}{casc} (panel of seed + champion "
+                  "policies; tools/divergence_audit.py). NEW BEST "
+                  "admissions are exact-rescored; treat fast-engine "
+                  "rankings within the drift bound as ties.",
+                  file=sys.stderr)
+        else:
+            print(f"note: no divergence audit row for {args.trace}; run "
+                  "tools/divergence_audit.py --traces "
+                  f"{args.trace} for a measured flat-vs-exact bound",
+                  file=sys.stderr)
+    from fks_tpu_torch import obs
+    from fks_tpu_torch.obs.telemetry import record_devices
+
+    wl = _parse_workload(args)
+    with _flight_recorder(args, "evolve") as rec, \
+            obs.watch_compiles(rec), _metrics_writer(args) as metrics:
+        if rec.enabled:
+            rec.annotate_meta(engine=args.engine, trace=args.trace,
+                              nodes=args.nodes,
+                              workload={"nodes": wl.num_nodes,
+                                        "pods": wl.num_pods})
+            record_devices(rec)
+        on_gen = None
+        if metrics:
+            def on_gen(st):
+                # streamed per generation: an interrupted evolution still
+                # leaves a complete metric trail up to the crash point
+                metrics.write("generation", dataclasses.asdict(st))
+        fs = evo.run(wl, cfg, backend=backend,
+                     sim_config=SimConfig(watchdog=args.watchdog),
+                     checkpoint_path=args.checkpoint,
+                     wal_path=args.wal, out_dir=args.out,
+                     engine=args.engine, on_generation=on_gen,
+                     profile=args.profile, device=_device(args))
+        if fs.best:
+            rec.annotate_meta(best_score=fs.best[1],
+                              best_exact=fs.best_exact,
+                              generations=fs.generation)
+        if fs.sentinel.alerts:
+            rec.annotate_meta(parity_alerts=fs.sentinel.alerts)
+    if fs.best:
+        print(f"best fitness: {fs.best[1]:.4f}")
+        # on interrupt evo.run already persisted champions
+        if args.out and not getattr(fs, "interrupted", False):
+            path = fs.save_top_policies(args.out, k=5)
+            print(f"saved top policies to {path}")
+            print(f"saved best policy to {fs.save_best_policy(args.out)}")
+    if fs.sentinel.alerts:
+        # drift beyond the tolerance: the fitness the selection trusted
+        # disagrees with the exact reference evaluator
+        print(f"PARITY ALERT: {fs.sentinel.alerts} generation(s) exceeded "
+              f"drift tolerance {cfg.parity_tol:g} (max drift "
+              f"{fs.sentinel.max_drift:.3g}); see the run dir's alert "
+              "events", file=sys.stderr)
+        return 3
+    if getattr(fs, "llm_outage", False):
+        # the run halted on the LLM-outage circuit breaker: "endpoint
+        # down, retry later", apart from a failed search
+        print(f"LLM OUTAGE: halted at generation {fs.generation} after "
+              f"{fs.cfg.llm_outage_generations} consecutive generations "
+              "with zero drafted candidates; checkpoint saved",
+              file=sys.stderr)
+        return 4
+    return 0
+
+
+#: the fused kernel's refusals that get ``scale``'s guidance (shape and
+#: option guards), told apart from other ValueErrors by their text
+_FUSED_GUARDS = ("fused kernel", "node_prefilter_k", "state_pack")
+
+
+def cmd_scale(args) -> int:
+    """Synthetic scale run: an N-node x P-pod generated trace, a
+    population evaluated at once, a throughput report
+    (fks_tpu/cli.py:440). Runs over a mesh with ``--devices N``, or over
+    every card when more than one is visible. ``--code-pop N`` also
+    measures the VM code-candidate tier (FakeLLM candidates lowered to
+    register programs)."""
+    import torch
+
+    from fks_tpu_torch import obs
+    from fks_tpu_torch.data.synthetic import synthetic_workload
+    from fks_tpu_torch.device import resolve_device
+    from fks_tpu_torch.models import parametric
+    from fks_tpu_torch.obs.telemetry import record_devices, record_mesh
+    from fks_tpu_torch.parallel import (
+        make_population_eval, make_sharded_eval, num_shards, pad_population,
+    )
+    from fks_tpu_torch.parallel.mesh import (
+        cuda_devices, lead_device, population_mesh,
+    )
+    from fks_tpu_torch.sim.engine import SimConfig, resolve_auto_prefilter
+    from fks_tpu_torch.utils.profiling import ThroughputMeter
+
+    dev = resolve_device(_device(args))
+    mesh = _mesh(args)
+    if mesh is None and dev.type == "cuda" and torch.cuda.device_count() > 1:
+        mesh = population_mesh(cuda_devices())
+    with _flight_recorder(args, "scale") as rec, \
+            obs.watch_compiles(rec), \
+            _metrics_writer(args) as metrics:  # up front: bad paths fail fast
+        node_park = None
+        if args.openb_nodes:
+            from fks_tpu_torch.data.traces import parse_node_yaml
+            node_park = parse_node_yaml()
+        wl = synthetic_workload(args.nodes_count, args.pods_count,
+                                seed=args.seed, nodes=node_park)
+        print(f"synthetic workload: {wl.num_nodes} nodes x {wl.num_pods} "
+              f"pods, population {args.pop}"
+              + (" (OpenB node park)" if node_park else ""),
+              file=sys.stderr)
+        if rec.enabled:
+            rec.annotate_meta(engine=args.engine,
+                              workload={"nodes": wl.num_nodes,
+                                        "pods": wl.num_pods},
+                              population=args.pop)
+            record_devices(rec)
+        lead = lead_device(mesh) if mesh is not None else dev
+        gen = torch.Generator(device=lead)
+        gen.manual_seed(args.seed)
+        pop = parametric.init_population(gen, args.pop, noise=0.1)
+        pk_override = args.prefilter_k
+        c = wl.cluster
+        if args.engine == "fused" and pk_override is None:
+            pk = 0  # the fused kernel has no prefilter path; don't probe
+        else:
+            pk = resolve_auto_prefilter(
+                parametric.score, pop[0], c.n_padded, c.g_padded,
+                override=pk_override, recorder=rec, device=lead)
+        cfg = SimConfig(node_prefilter_k=pk, state_pack=args.state_pack)
+        try:
+            if mesh is not None:
+                shards = num_shards(mesh)
+                padded, real = pad_population(pop, mesh)
+                record_mesh(mesh, real_count=args.pop, recorder=rec)
+                ev = make_sharded_eval(wl, mesh, cfg=cfg,
+                                       elite_k=min(4, args.pop),
+                                       engine=args.engine)
+                with obs.span("eval", population=args.pop) as t:
+                    scores = t.sync(ev(padded, real)[0])[:real]
+                mode = f"sharded over {shards} devices"
+            else:
+                evp = make_population_eval(wl, cfg=cfg, engine=args.engine,
+                                           device=dev)
+                with obs.span("eval", population=args.pop) as t:
+                    res = t.sync(evp(pop))
+                scores = res.policy_score
+                mode = "vmap on 1 device"
+        except ValueError as e:
+            if args.engine != "fused" or not any(
+                    g in str(e) for g in _FUSED_GUARDS):
+                raise  # only the fused kernel's guards get guidance
+            print(f"error: {e}\n(try smaller --nodes-count/--pods-count, "
+                  f"or --engine flat)", file=sys.stderr)
+            return 2
+        meter = ThroughputMeter()
+        meter.add(args.pop, t.seconds)
+        out = {
+            "mode": mode, "engine": args.engine,
+            "nodes": wl.num_nodes, "pods": wl.num_pods,
+            "population": args.pop, "wall_s": round(t.seconds, 3),
+            "evals_per_sec": round(meter.rate, 3),
+            "score_min": round(float(scores.min()), 4),
+            "score_max": round(float(scores.max()), 4),
+            "node_prefilter_k": cfg.node_prefilter_k,
+            "prefilter_auto": pk_override is None,
+            "state_pack": cfg.state_pack,
+            "openb_nodes": node_park is not None,
+        }
+        if args.code_pop > 0:
+            rc = _scale_code_tier(args, wl, cfg, mesh, dev, rec, out)
+            if rc:
+                return rc
+        if metrics:
+            metrics.write("scale", out)
+        rec.metric("scale", out)
+    print(json.dumps(out, indent=2))
+    return 0
+
+
+def _scale_code_tier(args, wl, cfg, mesh, dev, rec, out) -> int:
+    """``scale --code-pop N``: N FakeLLM candidates lowered to VM
+    programs, evaluated at once (over the mesh when there is one); adds
+    the ``code_*`` fields to ``out``. Returns 2 when too few candidates
+    lower, else 0."""
+    from fks_tpu_torch import obs
+    from fks_tpu_torch.funsearch import vm
+    from fks_tpu_torch.parallel import make_sharded_code_eval, pad_population
+    from fks_tpu_torch.parallel.mesh import lead_device
+    from fks_tpu_torch.sim import get_engine
+    from fks_tpu_torch.sim.engine import resolve_auto_prefilter
+    from fks_tpu_torch.sim.types import map_tensors
+    from fks_tpu_torch.utils.profiling import ThroughputMeter
+
+    # the fused kernel evaluates parametric weights only; the VM tier
+    # runs on the interpreter engines
+    code_engine = "flat" if args.engine == "fused" else args.engine
+    c = wl.cluster
+    progs, _ = vm.lower_fake_candidates(
+        c.n_padded, c.g_padded, args.code_pop, capacity=256)
+    if len(progs) < args.code_pop:
+        print(f"error: FakeLLM lowered only {len(progs)} VM candidates; "
+              f"lower --code-pop", file=sys.stderr)
+        return 2
+    lead = lead_device(mesh) if mesh is not None else dev
+    stacked = map_tensors(lambda x: x.to(lead),
+                          vm.stack_programs(progs[: args.code_pop]))
+    # the code tier probes its own policy cost: VM register programs are
+    # the expensive case the prefilter exists for, so auto may choose k>0
+    # here while the parametric tier stayed dense
+    pk_code = resolve_auto_prefilter(
+        vm.score_static, map_tensors(lambda x: x.to(lead), progs[0]),
+        c.n_padded, c.g_padded, override=args.prefilter_k, recorder=rec,
+        device=lead)
+    ccfg = dataclasses.replace(cfg, node_prefilter_k=pk_code)
+    if mesh is not None:
+        cpadded, creal = pad_population(stacked, mesh)
+        cev = make_sharded_code_eval(wl, mesh, cfg=ccfg,
+                                     elite_k=min(4, args.code_pop),
+                                     engine=code_engine)
+        with obs.span("code_eval", code_population=args.code_pop) as ct:
+            cres = ct.sync(cev(cpadded, creal)[0])
+    else:
+        mod = get_engine(code_engine)
+        cwl = wl.to(dev)
+        crun = mod.make_population_run_fn(cwl, vm.score_static, ccfg)
+        with obs.span("code_eval", code_population=args.code_pop) as ct:
+            cres = ct.sync(crun(stacked, mod.initial_state(cwl, ccfg)))
+    cscores = cres.policy_score[: args.code_pop]
+    cmeter = ThroughputMeter()
+    cmeter.add(args.code_pop, ct.seconds)
+    out.update({
+        "code_population": args.code_pop,
+        "code_engine": code_engine,
+        "code_prefilter_k": pk_code,
+        "code_wall_s": round(ct.seconds, 3),
+        "code_evals_per_sec": round(cmeter.rate, 3),
+        "code_score_max": round(float(cscores.max()), 4),
+    })
+    return 0
 
 
 def cmd_serve(args) -> int:
@@ -458,25 +921,272 @@ def cmd_pipeline(args) -> int:
     return 0
 
 
-def _add_run_dir_flag(p) -> None:
-    p.add_argument("--run-dir", default="",
-                   help="flight-recorder run directory (meta.json, "
-                        "events.jsonl, metrics.jsonl, heartbeat), in "
-                        "fks_tpu's layout")
+
+def cmd_loadgen(args) -> int:
+    """Drive a sustained multi-tenant arrival mix against a warm serve
+    service (``obs.workload.run_loadgen``) and print the summary — the
+    four gated keys ``loadgen_qps`` / ``loadgen_p99_ms`` /
+    ``loadgen_shed_rate`` / ``loadgen_fairness_index`` plus per-tenant
+    breakdowns (fks_tpu/cli.py:792). Accounting is always on. Default is
+    a hermetic template champion over a synthetic workload; ``--http``
+    routes through the localhost HTTP front instead of the in-process
+    client."""
+    from fks_tpu_torch import obs
+    from fks_tpu_torch.obs.history import SLOConfig
+    from fks_tpu_torch.obs.workload import (
+        http_client, parse_tenant_spec, run_loadgen, service_client,
+    )
+    from fks_tpu_torch.serve import (
+        ChampionSpec, ServeEngine, ServeService, ShapeEnvelope,
+        load_champion, make_http_server,
+    )
+
+    try:
+        plan = parse_tenant_spec(args.tenants)
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    with _flight_recorder(args, "loadgen") as rec, obs.watch_compiles(rec):
+        if args.champion:
+            champion = load_champion(args.champion)
+            wl = _parse_workload(args)
+        else:
+            # hermetic default: a template champion over a synthetic
+            # workload, so loadgen runs before any evolution has produced
+            # a ledger (and repeat runs are bit-identical)
+            from fks_tpu_torch.data.synthetic import synthetic_workload
+            from fks_tpu_torch.funsearch import template
+
+            champion = ChampionSpec(
+                code=template.fill_template("score = 1000"),
+                source="<loadgen-default>")
+            wl = synthetic_workload(16, 32, seed=args.seed)
+        engine = ServeEngine(
+            champion, wl,
+            envelope=ShapeEnvelope(max_pods=args.max_pods,
+                                   max_batch=args.max_batch),
+            engine=args.engine, recorder=rec, device=_device(args))
+        engine.warmup()  # measure serving, not first-call captures
+        slo = (SLOConfig(p99_ms=args.slo_p99_ms) if args.slo_p99_ms
+               else None)
+        service = ServeService(engine, recorder=rec, slo=slo,
+                               max_queue=args.max_queue,
+                               accounting=True,
+                               workload_every=args.workload_every)
+        if rec.enabled:
+            rec.annotate_meta(tenants=args.tenants,
+                              duration_s=args.duration,
+                              front="http" if args.http is not None
+                              else "in-process")
+        server = None
+        try:
+            if args.http is not None:
+                import threading
+
+                server = make_http_server(service, args.http)
+                port = server.server_address[1]
+                threading.Thread(target=server.serve_forever,
+                                 daemon=True).start()
+                send = http_client(port)
+                print(f"loadgen -> http://127.0.0.1:{port}/query",
+                      file=sys.stderr)
+            else:
+                send = service_client(service)
+            summary = run_loadgen(send, plan, duration_s=args.duration,
+                                  seed=args.seed, recorder=rec)
+        finally:
+            if server is not None:
+                server.shutdown()
+                server.server_close()
+            service.close()
+            # record the serve-side view: tenant_stats / workload_mix /
+            # slo_burn rows land in the run dir even when the request
+            # count never crossed a workload_every window
+            service.summary()
+    print(json.dumps(summary, indent=2))
+    return 0
 
 
-def _add_placement_flags(p) -> None:
-    p.add_argument("--device", default="cuda",
-                   help="where the engine runs: 'cuda' (default) or "
-                        "'cpu' (the plain PyTorch path)")
-    p.add_argument("--cpu", action="store_true",
-                   help="the same as --device cpu")
-    p.add_argument("--devices", type=int, default=0,
-                   help="mesh-sharded serving: shard the lane axis over "
-                        "the first N CUDA devices (raises with fewer), or "
-                        "with --cpu over N logical CPU shards; unlike "
-                        "fks_tpu, it does not require --cpu (0 = one "
-                        "device)")
+def cmd_trace_diff(args) -> int:
+    """Replay one policy through two engines with the decision trace on
+    and report the first divergent scheduling step (``obs.tracing``;
+    fks_tpu/cli.py:1346). Exit code contract: 0 = no divergence,
+    1 = divergence found, 2 = error."""
+    from fks_tpu_torch.obs import tracing
+    from fks_tpu_torch.sim.engine import SimConfig
+
+    engines = [e.strip() for e in args.engines.split(",") if e.strip()]
+    if len(engines) != 2:
+        print(f"--engines needs exactly two comma-separated names, got "
+              f"{engines}", file=sys.stderr)
+        return 2
+    bad = [e for e in engines if e not in ("exact", "flat")]
+    if bad:
+        print(f"unsupported trace engine(s) {bad}: the fused kernel does "
+              "not carry the decision trace; use 'exact' and/or 'flat'",
+              file=sys.stderr)
+        return 2
+    wl = _parse_workload(args)
+    label = args.code or args.policy
+    if args.scenario is not None:
+        # replay on one suite scenario (fault-injected variants included:
+        # both trace engines carry NODE_DOWN/NODE_UP rows)
+        from fks_tpu_torch.scenarios import get_suite
+
+        try:
+            suite = get_suite(args.suite, wl)
+        except ValueError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
+        if not 0 <= args.scenario < len(suite):
+            print(f"error: --scenario {args.scenario} out of range for "
+                  f"suite {suite.name!r} ({len(suite)} scenarios)",
+                  file=sys.stderr)
+            return 2
+        wl = suite.workloads[args.scenario]
+        label = (f"{label}@{suite.name}"
+                 f"[{args.scenario}:{suite.names[args.scenario]}]")
+    code = ""
+    if args.code:
+        try:
+            with open(args.code) as f:
+                code = f.read()
+        except OSError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
+    try:
+        param_policy, params = tracing.policy_params(
+            wl, policy_name=args.policy, code=code)
+    except Exception as e:  # noqa: BLE001 — bad policy/code is a usage error
+        print(f"error: {type(e).__name__}: {e}", file=sys.stderr)
+        return 2
+    cfg_kw = {"cond_policy": True}
+    if args.max_steps:
+        cfg_kw["max_steps"] = args.max_steps
+    # duplicate engine names (exact-vs-exact self-consistency) get #i tags
+    # so the record's per-engine keys stay distinct
+    names = [f"{e}#{i}" if engines.count(e) > 1 else e
+             for i, e in enumerate(engines)]
+    specs = [(name, eng, param_policy, params)
+             for name, eng in zip(names, engines)]
+    with _flight_recorder(args, "trace-diff") as rec:
+        record = tracing.trace_diff(
+            wl, specs, cfg=SimConfig(**cfg_kw), score_tol=args.tol,
+            recorder=rec, label=label, device=_device(args))
+    print(tracing.format_diff(record))
+    return 1 if record["divergent"] else 0
+
+
+def cmd_scenarios(args) -> int:
+    """Scenario-suite discovery (fks_tpu/cli.py:1461): with no flags, list
+    the registered suites; with ``--suite`` materialize one against the
+    workload and print its summary; with ``--scenario I`` one scenario,
+    with its NODE_DOWN/NODE_UP timeline. ``--run-dir`` lands the suite
+    summary as a ``scenario_suite`` metric. Host-side only: it launches
+    nothing on the device."""
+    from fks_tpu_torch.scenarios import list_suites
+
+    if not args.suite:
+        print(json.dumps(list_suites(), indent=2))
+        return 0
+    from fks_tpu_torch.ops.heap import KIND_NODE_DOWN
+    from fks_tpu_torch.scenarios import get_suite
+
+    wl = _parse_workload(args)
+    with _flight_recorder(args, "scenarios") as rec:
+        try:
+            suite = get_suite(args.suite, wl)
+        except ValueError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
+        desc = suite.describe()
+        rec.metric("scenario_suite", desc)
+        if args.scenario is None:
+            print(json.dumps(desc, indent=2))
+            return 0
+        if not 0 <= args.scenario < len(suite):
+            print(f"error: --scenario {args.scenario} out of range for "
+                  f"suite {suite.name!r} ({len(suite)} scenarios)",
+                  file=sys.stderr)
+            return 2
+        fe = suite.workloads[args.scenario].faults
+        m = fe.mask.bool()
+        row = dict(desc["scenarios"][args.scenario], fault_timeline=[
+            {"time": int(t), "node": int(nd),
+             "kind": ("NODE_DOWN" if int(k) == KIND_NODE_DOWN
+                      else "NODE_UP")}
+            for t, nd, k in zip(fe.time[m].tolist(), fe.node[m].tolist(),
+                                fe.kind[m].tolist())])
+    print(json.dumps(row, indent=2))
+    return 0
+
+
+def cmd_mem(args) -> int:
+    """Memory observability (``obs.memory``; fks_tpu/cli.py:1511). Three
+    modes: the memory view of a recorded run from ``--run-dir``'s JSONL
+    (the footprint ladder, the per-layout roll-up, the watermark table
+    and the leak sentinel's verdicts); ``--sample``, one live watermark
+    sample as JSON; ``--drill NAME``, one memory drill, exit 0/1 on its
+    verdict (``vm_swap_leak``: swaps and served batches with zero net
+    growth of the live tensors; ``snapshot_cache_bound``: the snapshot
+    cache under its byte ceiling)."""
+    if args.drill:
+        from fks_tpu_torch.obs import get_recorder
+        from fks_tpu_torch.obs.memory import run_drill
+
+        kw = {}
+        if args.drill == "vm_swap_leak":
+            kw = {"swaps": args.swaps, "batches": args.batches}
+        with _flight_recorder(args, "mem"):
+            res = run_drill(args.drill, recorder=get_recorder(),
+                            device=_device(args), **kw)
+        print(json.dumps(res))
+        return 0 if res.get("ok") else 1
+    if args.sample:
+        from fks_tpu_torch.device import resolve_device
+        from fks_tpu_torch.obs.memory import WatermarkSampler
+
+        resolve_device(_device(args))  # no card: raise, never sample the CPU
+        sampler = WatermarkSampler(enabled=True, trace_host=True)
+        sampler.start()
+        try:
+            rec = sampler.sample(stage="cli")
+        finally:
+            sampler.stop()
+        print(json.dumps(rec))
+        return 0
+    if not args.run_dir:
+        print("error: mem needs --run-dir DIR (view mode), --sample, or "
+              "--drill NAME", file=sys.stderr)
+        return 2
+    from fks_tpu_torch.obs.report import _memory_section, load_run
+
+    try:
+        _meta, _events, metrics = load_run(args.run_dir)
+    except FileNotFoundError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    lines = _memory_section(metrics)
+    if not lines:
+        print(f"(no memory records in {args.run_dir} — footprints land "
+              "when an instrumented command compiles under --run-dir)")
+        return 0
+    print("\n".join(lines))
+    return 0
+
+
+def cmd_traces(args) -> int:
+    """Dataset discovery (fks_tpu/cli.py:1654)."""
+    from fks_tpu_torch.data import TraceParser
+
+    parser = TraceParser()
+    print("node files:")
+    for f in parser.get_available_node_files():
+        print(f"  {f}")
+    print("pod files:")
+    for f in parser.get_available_pod_files():
+        print(f"  {f}")
+    return 0
 
 
 def _add_trace_flags(p) -> None:
@@ -486,19 +1196,177 @@ def _add_trace_flags(p) -> None:
                    help="node CSV under benchmarks/traces/csv/")
 
 
+def _add_devices_flag(p, what: str) -> None:
+    p.add_argument("--devices", type=int, default=0,
+                   help=f"{what} over the first N CUDA devices (raises "
+                        "with fewer), or with --cpu over N logical CPU "
+                        "shards; unlike fks_tpu, it does not require "
+                        "--cpu (0 = one device)")
+
+
+def _common_parser() -> argparse.ArgumentParser:
+    """fks_tpu's ``common`` parent (fks_tpu/cli.py:1671-1687), with the
+    port's ``--device``."""
+    common = argparse.ArgumentParser(add_help=False)
+    common.add_argument("--cpu", action="store_true",
+                        help="run on the CPU (the same as --device cpu)")
+    common.add_argument("--device", default="cuda",
+                        help="where the command runs: 'cuda' (default; "
+                             "raises without a card) or 'cpu' (the plain "
+                             "PyTorch path)")
+    common.add_argument("--metrics", default="",
+                        help="append JSONL metric records to this file")
+    common.add_argument("--run-dir", default="",
+                        help="flight-recorder run directory (meta.json, "
+                             "events.jsonl, metrics.jsonl, heartbeat), in "
+                             "fks_tpu's layout")
+    common.add_argument("--engine", choices=("exact", "flat", "fused"),
+                        default="exact",
+                        help="simulation engine: 'exact' replicates the "
+                             "reference bit for bit; 'flat' is the "
+                             "throughput engine (documented retry-rule "
+                             "divergence, fks_tpu_torch.sim.flat); 'fused' "
+                             "is the CUDA whole-loop kernel (parametric "
+                             "populations — 'scale' command only)")
+    return common
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="fks_tpu_torch", description=__doc__)
     sub = ap.add_subparsers(dest="cmd", required=True)
+    common = _common_parser()
+
+    b = sub.add_parser("bench", help="policy comparison table",
+                       parents=[common])
+    _add_trace_flags(b)
+    b.add_argument("--policies", default="",
+                   help="comma-separated zoo policy names (default: all)")
+    b.add_argument("--f64", action="store_true",
+                   help="float64 evaluator arithmetic (exact reference "
+                        "parity)")
+    b.add_argument("--validate", action="store_true",
+                   help="enable the per-event invariant audit")
+    b.set_defaults(fn=cmd_bench)
+
+    s = sub.add_parser("simulate", help="one policy, detailed JSON result",
+                       parents=[common])
+    _add_trace_flags(s)
+    s.add_argument("--policy", default="best_fit")
+    s.add_argument("--f64", action="store_true")
+    s.add_argument("--validate", action="store_true")
+    s.set_defaults(fn=cmd_simulate)
+
+    e = sub.add_parser("evolve", help="run FunSearch evolution",
+                       parents=[common])
+    _add_trace_flags(e)
+    e.add_argument("--config", default="",
+                   help="reference-format llm_config.json")
+    e.add_argument("--fake-llm", action="store_true",
+                   help="deterministic offline codegen backend")
+    e.add_argument("--checkpoint", default="",
+                   help="evolution checkpoint path")
+    e.add_argument("--wal", default="",
+                   help="generation write-ahead log path "
+                        "(resilience.wal): drafted candidates and eval "
+                        "outcomes are fsync'd mid-generation and the loop "
+                        "checkpoints every generation — a kill "
+                        "mid-generation resumes without re-spending LLM "
+                        "calls or device evals (pair with --checkpoint)")
+    e.add_argument("--out", default="",
+                   help="directory for champion JSONs")
+    e.add_argument("--generations", type=int, default=None)
+    e.add_argument("--parametric-rounds", type=int, default=None,
+                   help="device-resident weight-evolution generations to "
+                        "interleave per LLM generation (hybrid mode; the "
+                        "champion is rendered to source and competes in "
+                        "the code population)")
+    e.add_argument("--watchdog", action="store_true",
+                   help="enable the numerics watchdog (SimConfig."
+                        "watchdog): NaN/Inf policy scores are masked to 0 "
+                        "and flagged in SimResult.numeric_flags; "
+                        "violations land as 'watchdog' events in the run "
+                        "dir")
+    e.add_argument("--parity-sample", type=int, default=None,
+                   help="per generation, re-score this many sampled "
+                        "population members through the exact reference "
+                        "evaluator and alert on fitness drift (0 = off; "
+                        "exit 3 when any generation alerts)")
+    e.add_argument("--parity-tol", type=float, default=None,
+                   help="parity drift tolerance (default 1e-5; raise "
+                        "above the measured divergence bound for "
+                        "--engine flat)")
+    e.add_argument("--suite", default=None,
+                   help="score candidates by composite ROBUST fitness "
+                        "over this scenario suite (try 'default8') "
+                        "instead of single-trace fitness — one batched "
+                        "evaluation covers every scenario, fault-injected "
+                        "variants included")
+    e.add_argument("--robust-agg", choices=("mean", "min", "cvar"),
+                   default=None,
+                   help="how per-scenario scores fold into the robust "
+                        "score (default mean; cvar = mean of the worst "
+                        "quarter)")
+    e.add_argument("--budget", choices=("none", "halving"), default=None,
+                   help="eval-budget allocation over the suite "
+                        "(funsearch.budget): 'halving' probes the whole "
+                        "generation cheaply, then only the top 1/eta "
+                        "advance to the full suite (requires --suite)")
+    e.add_argument("--budget-eta", type=int, default=None,
+                   help="survivor fraction denominator for --budget "
+                        "halving (default 2: keep the top half)")
+    e.add_argument("--probe-suite", default=None,
+                   help="probe-rung suite name (default smoke3)")
+    e.add_argument("--probe-steps", type=int, default=None,
+                   help="probe-rung event budget (truncated trace "
+                        "prefix; 0 = full trace on the probe suite)")
+    e.add_argument("--profile", action="store_true",
+                   help="attribute wall time per pipeline stage (codegen/"
+                        "preflight/transpile/device-eval/rank/ledger) with "
+                        "the CUDA-graph-capture vs compute split and lane "
+                        "occupancy — device_profile records in the run "
+                        "dir. Off adds no device fence")
+    e.set_defaults(fn=cmd_evolve)
+
+    sc = sub.add_parser("scale", help="synthetic scale run + throughput",
+                        parents=[common])
+    sc.add_argument("--nodes-count", "--nodes", dest="nodes_count",
+                    type=int, default=1000)
+    sc.add_argument("--pods-count", "--pods", dest="pods_count",
+                    type=int, default=100000)
+    sc.add_argument("--pop", type=int, default=8)
+    sc.add_argument("--seed", type=int, default=0,
+                    help="workload seed, and the seed of the population's "
+                         "torch.Generator draw (fks_tpu draws it with "
+                         "jax.random, so the weights and scores differ "
+                         "from fks_tpu's for the same seed)")
+    sc.add_argument("--prefilter-k", type=int, default=None,
+                    help="SimConfig.node_prefilter_k: score only the "
+                         "top-k statically-feasible nodes per event "
+                         "(0 = dense scan, bit-identical to the default "
+                         "program). Default: auto — a cheap policy-cost "
+                         "probe enables the prefilter for expensive "
+                         "policies on big node parks and leaves cheap "
+                         "parametric scoring dense "
+                         "(sim.engine.resolve_auto_prefilter)")
+    sc.add_argument("--state-pack", action="store_true",
+                    help="SimConfig.state_pack: narrow flat-engine carry "
+                         "columns to 16-bit where the value range "
+                         "provably fits (exact integer packing)")
+    sc.add_argument("--openb-nodes", action="store_true",
+                    help="draw the node park from the vendored OpenB "
+                         "node list (benchmarks/traces/node_yaml/, 1213 "
+                         "nodes; --nodes-count selects a prefix) instead "
+                         "of the synthetic archetype sampler")
+    sc.add_argument("--code-pop", type=int, default=0,
+                    help="also measure the VM code-candidate tier with N "
+                         "FakeLLM-lowered register programs (0 = off); "
+                         "sharded over the mesh when there is one")
+    _add_devices_flag(sc, "shard the population")
+    sc.set_defaults(fn=cmd_scale)
+
     sv = sub.add_parser("serve",
                         help="serve a pinned champion as a warm what-if "
-                             "query engine (JSONL/HTTP)")
-    _add_placement_flags(sv)
-    sv.add_argument("--engine", choices=("exact", "flat", "fused"),
-                    default="exact",
-                    help="simulation engine: 'exact' replicates the "
-                         "reference bit-for-bit; 'flat' trades the "
-                         "documented retry-rule divergence for throughput; "
-                         "'fused' refuses (parametric populations only)")
+                             "query engine (JSONL/HTTP)", parents=[common])
     _add_trace_flags(sv)
     sv.add_argument("--champion", default="",
                     help="champion JSON from the evolution ledger "
@@ -550,6 +1418,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="SimConfig.state_pack for the serving engine; "
                          "also engages the 16-bit packed query-upload "
                          "path (bit-identical answers)")
+    _add_devices_flag(sv, "mesh-sharded serving: shard the lane axis")
     sv.add_argument("--warmup", action="store_true",
                     help="capture every (lane, pod) shape bucket before "
                          "answering")
@@ -592,17 +1461,54 @@ def build_parser() -> argparse.ArgumentParser:
     sv.add_argument("--accounting", action="store_true",
                     help="per-tenant accounting + query fingerprinting "
                          "(obs.workload); off by default")
-    _add_run_dir_flag(sv)
     sv.set_defaults(fn=cmd_serve)
+
+    lg = sub.add_parser(
+        "loadgen",
+        help="drive a sustained multi-tenant arrival mix against a warm "
+             "serve service and print the gated loadgen summary",
+        parents=[common])
+    _add_trace_flags(lg)
+    lg.add_argument("--tenants", default="a:closed:2,b:closed:2,c:open:25",
+                    help="arrival plan, comma-separated "
+                         "name:mode:amount[:pods] — 'closed' amount = "
+                         "worker count (submit-wait-repeat), 'open' "
+                         "amount = Poisson qps (arrivals never wait on "
+                         "responses); pods = pods per query (default 2)")
+    lg.add_argument("--duration", type=float, default=5.0,
+                    help="seconds to sustain the arrival plan (default 5)")
+    lg.add_argument("--seed", type=int, default=0,
+                    help="loadgen RNG seed (open-loop arrival gaps; also "
+                         "the synthetic-workload seed)")
+    lg.add_argument("--champion", default="",
+                    help="champion JSON to serve (default: a hermetic "
+                         "built-in template champion over a synthetic "
+                         "workload)")
+    lg.add_argument("--http", type=int, nargs="?", const=0, default=None,
+                    help="route through the concurrent localhost HTTP "
+                         "front on this port (bare --http = ephemeral "
+                         "port) instead of the in-process client")
+    lg.add_argument("--max-pods", type=int, default=64,
+                    help="shape envelope: largest query (default 64)")
+    lg.add_argument("--max-batch", type=int, default=4,
+                    help="shape envelope: largest coalesced batch "
+                         "(default 4)")
+    lg.add_argument("--max-queue", type=int, default=0,
+                    help="bounded queue depth for admission-control "
+                         "shedding (0 = unbounded)")
+    lg.add_argument("--slo-p99-ms", type=float, default=50.0,
+                    help="per-tenant SLO p99 target feeding burn rates "
+                         "(default 50; 0 = unset)")
+    lg.add_argument("--workload-every", type=int, default=100,
+                    help="emit tenant_stats/workload_mix every N served "
+                         "requests (default 100)")
+    lg.set_defaults(fn=cmd_loadgen)
 
     pf = sub.add_parser(
         "portfolio",
         help="serve N resident champions from one set of graphs with "
              "per-request routing (pin / affinity / A-B / coverage "
-             "fallback)")
-    _add_placement_flags(pf)
-    pf.add_argument("--engine", choices=("exact", "flat"), default="exact",
-                    help="simulation engine (default exact)")
+             "fallback)", parents=[common])
     _add_trace_flags(pf)
     pf.add_argument("--champion", action="append", default=[],
                     help="champion JSON to load into a slot (repeatable; "
@@ -614,6 +1520,7 @@ def build_parser() -> argparse.ArgumentParser:
     pf.add_argument("--seed", type=int, default=0,
                     help="synthetic-workload seed for the built-in "
                          "champion set (default 0)")
+    _add_devices_flag(pf, "mesh-sharded serving: shard the lane axis")
     pf.add_argument("--max-pods", type=int, default=64,
                     help="shape envelope: largest query (default 64)")
     pf.add_argument("--max-batch", type=int, default=4,
@@ -644,17 +1551,11 @@ def build_parser() -> argparse.ArgumentParser:
                     help="query size for --selftest (default 3)")
     pf.add_argument("--audit-tol", type=float, default=1e-5,
                     help="selftest score drift tolerance")
-    _add_run_dir_flag(pf)
     pf.set_defaults(fn=cmd_portfolio)
 
     pp = sub.add_parser(
-        "pipeline",
+        "pipeline", parents=[common],
         help="promotion-pipeline status / fault-injection drills")
-    pp.add_argument("--device", default="cuda",
-                    help="where --drill runs its serve stack: 'cuda' "
-                         "(default) or 'cpu'")
-    pp.add_argument("--cpu", action="store_true",
-                    help="the same as --device cpu")
     pp.add_argument("--ledger-dir", default="",
                     help="champion ledger directory (default: "
                          "policies/discovered/)")
@@ -676,13 +1577,92 @@ def build_parser() -> argparse.ArgumentParser:
                     help="comma-separated drill-name substrings: run only "
                          "the matching drills (e.g. "
                          "--only deadline_storm,wal_resume)")
-    _add_run_dir_flag(pp)
     pp.set_defaults(fn=cmd_pipeline)
+
+    td = sub.add_parser(
+        "trace-diff",
+        help="replay one policy through two engines with decision traces "
+             "and report the first divergent step (exit 1 on divergence)")
+    _add_trace_flags(td)
+    td.add_argument("--engines", default="exact,flat",
+                    help="two comma-separated engines from {exact, flat} "
+                         "(the fused kernel cannot carry the trace); "
+                         "repeat one (exact,exact) for a self-check")
+    td.add_argument("--policy", default="best_fit",
+                    help="zoo policy to replay (ignored with --code)")
+    td.add_argument("--code", default="",
+                    help="candidate source file to replay on the "
+                         "funsearch VM instead of a zoo policy")
+    td.add_argument("--suite", default="default8",
+                    help="scenario suite providing --scenario variants "
+                         "(default default8)")
+    td.add_argument("--scenario", type=int, default=None,
+                    help="replay on suite scenario INDEX (0-based) instead "
+                         "of the base workload — fault-injected scenarios "
+                         "diff NODE_DOWN/NODE_UP rows too")
+    td.add_argument("--max-steps", type=int, default=0,
+                    help="cap replay steps (0 = engine default)")
+    td.add_argument("--tol", type=float, default=1e-5,
+                    help="score/margin comparison tolerance (default 1e-5)")
+    td.add_argument("--cpu", action="store_true",
+                    help="replay on the CPU (default: the card)")
+    td.add_argument("--run-dir", default="",
+                    help="flight-recorder run directory for the "
+                         "decision_trace / trace_diff records")
+    td.set_defaults(fn=cmd_trace_diff)
+
+    sn = sub.add_parser("scenarios",
+                        help="list scenario suites / describe one suite "
+                             "or scenario", parents=[common])
+    _add_trace_flags(sn)
+    sn.add_argument("--suite", default="",
+                    help="materialize this suite against the workload and "
+                         "print its summary (omit to list registered "
+                         "suites)")
+    sn.add_argument("--scenario", type=int, default=None,
+                    help="describe one scenario (0-based index) incl. its "
+                         "fault timeline")
+    sn.set_defaults(fn=cmd_scenarios)
+
+    mm = sub.add_parser(
+        "mem",
+        help="memory observability: footprint ladder / watermark view "
+             "of a run, one live sample, or a leak drill (exit 1 on a "
+             "failed drill)", parents=[common])
+    mm.add_argument("--drill",
+                    choices=("vm_swap_leak", "snapshot_cache_bound"),
+                    default="",
+                    help="run one deterministic memory drill and exit "
+                         "0/1 on its verdict")
+    mm.add_argument("--swaps", type=int, default=50,
+                    help="vm_swap_leak: swap_program iterations "
+                         "(default 50)")
+    mm.add_argument("--batches", type=int, default=200,
+                    help="vm_swap_leak: interleaved serve batches "
+                         "(default 200)")
+    mm.add_argument("--sample", action="store_true",
+                    help="take one live watermark sample (host RSS + "
+                         "per-card allocator counters) and print it as "
+                         "JSON")
+    mm.add_argument("--devices", type=int, default=0,
+                    help="fks_tpu's flag (the size of its virtual CPU "
+                         "mesh); accepted for its command lines, the "
+                         "drills here run one engine on one device")
+    mm.set_defaults(fn=cmd_mem)
+
+    t = sub.add_parser("traces", help="list available trace files")
+    t.set_defaults(fn=cmd_traces)
     return ap
 
 
 def main(argv=None) -> int:
-    args = build_parser().parse_args(argv)
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    if getattr(args, "engine", "exact") == "fused" and args.cmd != "scale":
+        ap.error("--engine fused evaluates parametric populations only — "
+                 "it applies to the 'scale' command (other commands run "
+                 "single policies or arbitrary evolved code; use "
+                 "'exact'/'flat' there)")
     return args.fn(args)
 
 

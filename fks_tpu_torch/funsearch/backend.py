@@ -32,13 +32,16 @@ The batched tier runs a generation through
 ``parallel.mesh.Mesh``; without one, a one-shard mesh over the
 evaluator's device): each shard interprets its chunk of the stacked
 programs. On a mesh of several shards a failure there raises instead of
-falling back to candidate-by-candidate scoring on one device. The footprint
-ledger of fks_tpu's batched tier waits for ``obs/memory.py`` (ROADMAP
-queue 1 item 6).
+falling back to candidate-by-candidate scoring on one device. While a
+flight recorder is on, the first launch of each (lanes, capacity) bucket
+on the card lands one ``memory_footprint`` record (component
+``"evolve"``): the allocator's peak across the launch that captures the
+bucket's graphs, ``obs.memory.capture_footprint``.
 """
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import dataclasses
 import os
 import threading
@@ -153,6 +156,7 @@ class CodeEvaluator:
         self._vm_pop_run = None  # lazily built population VM runner
         self._budget_eval = None  # lazily built rung ladder (budget mode)
         self.vm_batch_count = 0  # batched VM launches
+        self._footprinted_buckets = set()  # footprint records, once each
         # batched launches that raised, their candidates then scored one
         # by one: nonzero means the one-launch path is not engaging
         self.vm_batch_fallbacks = 0
@@ -272,6 +276,22 @@ class CodeEvaluator:
         scenario axis; fks_tpu shards suites at the parametric tier)."""
         return self._n_shards > 1 and self.suite is None
 
+    def _bucket_footprint(self, bucket: str, stacked):
+        """``obs.memory.capture_footprint`` around the first launch of a
+        (lanes, capacity) bucket on the card while a flight recorder is on
+        (the launch that captures its graphs); otherwise a null context
+        yielding an empty footprint, so nothing is recorded."""
+        from fks_tpu_torch.obs.memory import capture_footprint
+        from fks_tpu_torch.serve.batcher import tree_h2d_bytes
+
+        done = self._footprinted_buckets
+        if (not obs.get_recorder().enabled or self.device.type != "cuda"
+                or bucket in done):
+            return contextlib.nullcontext({})
+        done.add(bucket)
+        return capture_footprint(self.device,
+                                 argument_bytes=tree_h2d_bytes(stacked))
+
     def _run_vm_batch(self, progs: List[vm.VMProgram]) -> List[SimResult]:
         """Evaluate stacked VM candidates in ONE launch, sharded over the
         evaluator's mesh. The capacity is the
@@ -283,9 +303,15 @@ class CodeEvaluator:
         pop = vm.bucket_lanes(len(progs), self._n_shards)
         padded = list(progs) + [progs[-1]] * (pop - len(progs))
         stacked = self._to_device(vm.stack_programs(padded))
-        with obs.span("vm_batch", candidates=len(progs), lanes=pop,
-                      shards=self._n_shards):
+        bucket = f"pop={pop},cap={int(stacked.opcode.shape[-1])}"
+        with self._bucket_footprint(bucket, stacked) as fp, \
+                obs.span("vm_batch", candidates=len(progs), lanes=pop,
+                         shards=self._n_shards):
             result = _host(self._vm_pop_runner()(stacked, len(progs)))
+        from fks_tpu_torch.obs.layout import DEFAULT_LAYOUT_KEY
+        from fks_tpu_torch.obs.memory import record_footprint
+        record_footprint("evolve", bucket, footprint=fp, mesh=self.mesh,
+                         engine=self.engine, layout_key=DEFAULT_LAYOUT_KEY)
         with self._lock:
             self.vm_batch_count += 1
             self.vm_count += len(progs)

@@ -15,8 +15,8 @@ checkpoint written by either package restores in the other), the
 generation WAL, a hermetic fake-LLM mode, and per-generation ledger
 records; ``EvolutionConfig.parity_sample > 0`` samples the population
 through the parity sentinel (``obs.watchdog``) every generation.
-``profile=True`` waits for the stage profiler (ROADMAP queue 1 item 6)
-and raises.
+``profile=True`` attributes the run's wall time per pipeline stage
+(``obs.profiler.StageProfiler``).
 """
 from __future__ import annotations
 
@@ -36,7 +36,6 @@ from fks_tpu_torch.funsearch import llm as llm_mod
 from fks_tpu_torch.funsearch import template
 from fks_tpu_torch.funsearch.backend import CodeEvaluator, EvalRecord
 from fks_tpu_torch.obs import trace_ctx
-from fks_tpu_torch.obs.profiler import UNPORTED as UNPORTED_PROFILE
 from fks_tpu_torch.obs.watchdog import ParitySentinel, combined_flags
 from fks_tpu_torch.resilience.wal import GenerationWAL
 from fks_tpu_torch.sim.engine import SimConfig
@@ -266,7 +265,7 @@ class FunSearch:
         self.cfg = config
         self.evaluator = evaluator
         # stage attribution hooks: the evaluator's profiler (the disabled
-        # NULL_PROFILER until the stage profiler is ported)
+        # NULL_PROFILER unless run(profile=True))
         self.profiler = (profiler if profiler is not None
                          else evaluator.profiler)
         self.rng = random.Random(config.seed)
@@ -967,18 +966,20 @@ def run(workload, config: Optional[EvolutionConfig] = None,
     optionally resuming from a checkpoint, and run to completion. Returns
     the driver for inspection.
 
-    ``profile=True`` (per-stage device-time attribution) waits for the
-    port of the stage profiler (ROADMAP queue 1 item 6) and raises.
+    ``profile=True`` attributes the run's wall time per pipeline stage
+    (``obs.profiler.StageProfiler``): device_profile metrics into the
+    recorder trail, the ``__total__`` summary at the end, and the records
+    on the returned FunSearch's ``profiler.records``. Off is the default and
+    adds no device fence.
 
     A KeyboardInterrupt mid-evolution still persists champions (top-K +
     single best into ``out_dir``, reference: funsearch_integration.py:
     698-702) and the checkpoint — a long device run killed at the terminal
     must never lose its discoveries."""
-    if profile:
-        raise ValueError(UNPORTED_PROFILE)
     device = resolve_device(device)
     config = config or EvolutionConfig()
-    profiler = obs.NULL_PROFILER
+    profiler = (obs.StageProfiler(scope="evolve", recorder=recorder)
+                if profile else obs.NULL_PROFILER)
     suite = robust = budget = None
     if config.scenario_suite:
         from fks_tpu_torch.scenarios import RobustConfig, get_suite
@@ -1032,6 +1033,17 @@ def run(workload, config: Optional[EvolutionConfig] = None,
         if checkpoint_path:
             fs.checkpoint(checkpoint_path)
         return fs
+    finally:
+        if profile:
+            # the __total__ device_profile record: per-stage attribution
+            # aggregate + the idle (unattributed) remainder of the run
+            summ = profiler.summary(emit=True)
+            log("device-time attribution: "
+                f"{summ['attributed_fraction'] * 100:.1f}% of "
+                f"{summ['measured_wall_seconds']:.2f}s wall attributed "
+                f"({summ['compile_seconds']:.2f}s capture); see the "
+                "device_profile records")
+            profiler.close()
     if checkpoint_path:
         fs.checkpoint(checkpoint_path)
     return fs

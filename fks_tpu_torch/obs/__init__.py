@@ -1,14 +1,17 @@
 """Observability: the recorder seam and the run-directory flight
-recorder, spans, causal trace contexts, the evolution ledger, the disabled stage profiler, the graph-capture counter
-(``watch_compiles``), and the decision-trace tools (``obs.tracing``) and
-serve-side modules (``history``, ``workload``, ``watchdog``, ``memory``,
-``layout``) and ``report.read_jsonl``, imported on their own.
+recorder, spans, causal trace contexts, the evolution ledger, the stage
+profiler (``profiler``: per-stage wall / capture / compute attribution),
+the graph-capture counter (``watch_compiles``), and the decision-trace
+tools (``obs.tracing``) and the serve-side and memory modules
+(``history``, ``workload``, ``watchdog``, ``memory``, ``layout``) and
+``report`` (``read_jsonl``, ``load_run`` and the memory view), imported
+on their own.
 
 Port of the parts of fks_tpu.obs that the engines, the evolve loop,
-serving and the control plane use. With the shared ``NullRecorder``
-active (the default) nothing is written anywhere; ``FlightRecorder``
-writes fks_tpu's run directory. Reports and exporters wait for the rest
-of ``obs/`` (ROADMAP queue 1 item 6).
+serving, the control plane and the run commands use. With the shared
+``NullRecorder`` active (the default) nothing is written anywhere;
+``FlightRecorder`` writes fks_tpu's run directory. The rendered report,
+the exporters and the cross-run comparison are fks_tpu's alone so far.
 """
 from fks_tpu_torch.obs import trace_ctx
 from fks_tpu_torch.obs.ledger import EvolutionLedger

@@ -22,8 +22,8 @@ after. So the counterpart counts captures:
   are the captures and their seconds: "zero recompiles on the warm path"
   reads as zero captures; ``count_in(scope)`` counts one scope's.
 - ``device_snapshot``/``record_devices``: per-device identity plus the
-  caching allocator's counters (``torch.cuda.memory_stats``), None on
-  the CPU;
+  caching allocator's counters (``torch.cuda.memory_stats`` through
+  ``normalize_memory_stats``), None on the CPU;
 - ``mesh_snapshot``/``record_mesh``: a ``parallel.mesh.Mesh``'s axes,
   shape, device and shard counts, and the pad-lane waste of a padded
   population.
@@ -177,21 +177,51 @@ def watch_compiles(recorder=None):
 # --------------------------------------------------------- snapshots
 
 
+#: canonical memory_stats keys -> the spellings that answer them: the
+#: caching allocator's (``torch.cuda.memory_stats``) first, then the ones
+#: fks_tpu's copy reads off XLA backends (fks_tpu/obs/telemetry.py:132-141)
+_MEMORY_STAT_ALIASES = (
+    ("bytes_in_use", ("allocated_bytes.all.current", "bytes_in_use",
+                      "bytes_used", "used_bytes")),
+    ("peak_bytes_in_use", ("allocated_bytes.all.peak", "peak_bytes_in_use",
+                           "peak_bytes", "max_bytes_in_use",
+                           "largest_alloc_size")),
+    ("bytes_limit", ("bytes_limit", "bytes_reservable_limit",
+                     "pool_bytes", "limit_bytes")),
+)
+
+
+def normalize_memory_stats(raw: Any) -> Optional[Dict[str, int]]:
+    """Canonicalize a memory-stats dict to the closed ``bytes_in_use`` /
+    ``peak_bytes_in_use`` / ``bytes_limit`` subset every reader keys on
+    (fks_tpu/obs/telemetry.py:144). None or an empty dict normalizes to
+    None; partial dicts keep whichever canonical keys they can answer."""
+    if not isinstance(raw, dict) or not raw:
+        return None
+    out: Dict[str, int] = {}
+    for canon, spellings in _MEMORY_STAT_ALIASES:
+        for k in spellings:
+            v = raw.get(k)
+            if isinstance(v, (int, float)) and not isinstance(v, bool):
+                out[canon] = int(v)
+                break
+    return out or None
+
+
 def cuda_memory_stats(index: int) -> Optional[Dict[str, int]]:
-    """Card ``index``'s allocator counters in fks_tpu's canonical keys
-    (``bytes_in_use``, ``peak_bytes_in_use``, ``bytes_limit``), from
-    ``torch.cuda.memory_stats``; None without a card."""
+    """Card ``index``'s allocator counters in fks_tpu's canonical keys:
+    ``bytes_in_use`` and ``peak_bytes_in_use`` from
+    ``torch.cuda.memory_stats`` (allocated bytes, current and peak),
+    ``bytes_limit`` the card's total memory; None without a card."""
     import torch
 
     if not torch.cuda.is_available():
         return None
-    raw = torch.cuda.memory_stats(index)
-    return {
-        "bytes_in_use": int(raw.get("allocated_bytes.all.current", 0)),
-        "peak_bytes_in_use": int(raw.get("allocated_bytes.all.peak", 0)),
-        "bytes_limit": int(torch.cuda.get_device_properties(index)
-                           .total_memory),
-    }
+    # an allocator that has allocated nothing yet reports no counters
+    raw = {"allocated_bytes.all.current": 0, "allocated_bytes.all.peak": 0,
+           **torch.cuda.memory_stats(index), "bytes_limit": int(
+               torch.cuda.get_device_properties(index).total_memory)}
+    return normalize_memory_stats(raw)
 
 
 def device_snapshot() -> List[Dict[str, Any]]:

@@ -6,6 +6,8 @@ Port of fks_tpu.utils.logging:
   configured once, level from ``FKS_LOG_LEVEL`` (default INFO);
 - ``json_ready``: the ``json.dumps`` ``default=`` hook that turns numpy
   scalars and arrays and torch tensors into plain Python;
+- ``result_record``: a ``SimResult`` flattened into fks_tpu's metric
+  schema (plain floats, ints and bools);
 - ``MetricsWriter``: append-only JSONL records, one flushed line per
   record, each stamped with ``ts`` and ``kind`` (the flight recorder's
   ``events.jsonl`` and ``metrics.jsonl`` are two of them).
@@ -62,6 +64,29 @@ def get_logger(name: str = "fks_tpu_torch") -> logging.Logger:
     if name == "fks_tpu_torch" or name.startswith("fks_tpu_torch."):
         return logging.getLogger(name)
     return logging.getLogger(f"fks_tpu_torch.{name}")
+
+
+def result_record(result, **extra) -> Dict[str, Any]:
+    """Flatten a one-lane ``SimResult`` (0-d tensors, on any device)
+    into fks_tpu's reference-compatible metric schema: the same keys, as
+    plain floats, ints and bools (fks_tpu/utils/logging.py:64-83)."""
+    rec = {
+        "policy_score": float(result.policy_score),
+        "avg_cpu_utilization": float(result.avg_cpu_utilization),
+        "avg_memory_utilization": float(result.avg_memory_utilization),
+        "avg_gpu_count_utilization": float(result.avg_gpu_count_utilization),
+        "avg_gpu_memory_utilization": float(result.avg_gpu_memory_utilization),
+        "gpu_fragmentation_score": float(result.gpu_fragmentation_score),
+        "num_snapshots": int(result.num_snapshots),
+        "num_fragmentation_events": int(result.num_fragmentation_events),
+        "events_processed": int(result.events_processed),
+        "scheduled_pods": int(result.scheduled_pods),
+        "max_nodes": int(result.max_nodes),
+        "failed": bool(result.failed),
+        "truncated": bool(result.truncated),
+    }
+    rec.update(extra)
+    return rec
 
 
 class MetricsWriter:

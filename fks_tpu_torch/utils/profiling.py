@@ -1,20 +1,23 @@
-"""Wall-clock timing that waits for the device work it times.
+"""Wall-clock timing that waits for the device work it times, device
+traces and throughput counters.
 
-Port of ``Timing``, ``timed`` and ``block_timed`` from
-fks_tpu.utils.profiling. CUDA calls return before the card finishes, so a
-plain clock delta measures the enqueue: a value registered with
-``Timing.sync`` (or passed as ``sync=``) makes the clock stop only after
-``torch.cuda.synchronize`` on every CUDA device the value's tensors live
-on. CPU tensors are ready when the call returns. ``device_trace`` and
-``ThroughputMeter`` wait for the rest of ``obs/`` (ROADMAP queue 1).
+Port of fks_tpu.utils.profiling. CUDA calls return before the card
+finishes, so a plain clock delta measures the enqueue: a value
+registered with ``Timing.sync`` (or passed as ``sync=``) makes the clock
+stop only after ``torch.cuda.synchronize`` on every CUDA device the
+value's tensors live on. CPU tensors are ready when the call returns.
+``device_trace`` records a ``torch.profiler`` trace (fks_tpu's is an
+XLA profile), and ``ThroughputMeter`` sums (count, seconds) batches into
+a rate.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import os
 import time
-from dataclasses import dataclass
-from typing import Any, Iterator, Set
+from dataclasses import dataclass, field
+from typing import Any, Iterator, List, Optional, Set
 
 import torch
 
@@ -86,3 +89,56 @@ def block_timed(fn, *args, **kwargs):
     t0 = time.perf_counter()
     result = block_until_ready(fn(*args, **kwargs))
     return result, time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def device_trace(logdir: str) -> Iterator[None]:
+    """Record a ``torch.profiler`` trace of the block (host ops, and the
+    card's kernels when CUDA is available) and write it into ``logdir`` as
+    a Chrome trace (``trace.json``; chrome://tracing or Perfetto). fks_tpu
+    writes an XLA profile for TensorBoard here instead."""
+    import torch.profiler as tp
+
+    activities = [tp.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(tp.ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    with tp.profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+
+
+@dataclass
+class ThroughputMeter:
+    """Accumulate (count, seconds) batches; report rates.
+
+    ``rate`` is total count over total seconds (not a mean of rates,
+    which would overweight small batches).
+    """
+
+    counts: List[float] = field(default_factory=list)
+    seconds: List[float] = field(default_factory=list)
+
+    def add(self, count: float, seconds: float) -> None:
+        self.counts.append(float(count))
+        self.seconds.append(float(seconds))
+
+    @property
+    def total_count(self) -> float:
+        return sum(self.counts)
+
+    @property
+    def total_seconds(self) -> float:
+        return sum(self.seconds)
+
+    @property
+    def rate(self) -> Optional[float]:
+        """Items per second over everything recorded; None if no time."""
+        if self.total_seconds <= 0:
+            return None
+        return self.total_count / self.total_seconds
+
+    def summary(self) -> str:
+        r = self.rate
+        return (f"{self.total_count:.0f} in {self.total_seconds:.2f}s"
+                + (f" = {r:.1f}/s" if r is not None else ""))

@@ -227,8 +227,13 @@ def test_unported_options_raise(micro):
         CodeEvaluator(wl, mesh=object(), device="cpu")
     with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         ParametricEvolution(wl, pop_size=4, mesh=object(), device="cpu")
-    with pytest.raises(ValueError, match="queue 1 item 6"):
-        evo.run(wl, EvolutionConfig(**BASE), profile=True, device="cpu")
+    # profile=True runs profiled (tests/test_torch_profiler.py holds its
+    # attribution)
+    fs = evo.run(wl, EvolutionConfig(**BASE), profile=True, device="cpu",
+                 log=quiet)
+    assert fs.profiler.enabled
+    assert {"setup", "seed", "codegen", "rank", "ledger"} <= {
+        r["stage"] for r in fs.profiler.records}
     with pytest.raises(ValueError, match="requires suite mode"):
         from fks_tpu_torch.funsearch import BudgetConfig
         CodeEvaluator(wl, budget=BudgetConfig(schedule="halving"),

@@ -799,3 +799,73 @@ def test_sigterm_drain_with_a_batch_in_flight(cuda, tmp_path):
         assert again.preload_replay(saved["replay"]) == len(queries)
     finally:
         again.close()
+
+
+def _cli(argv):
+    """(exit code, stdout) of the port's ``cli.main(argv)``."""
+    import contextlib
+    import io
+
+    from fks_tpu_torch import cli
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(argv)
+    return rc, out.getvalue()
+
+
+def test_cli_scale_fused_launches_the_kernel_once(cuda):
+    before = fused.fused_sim.launches
+    rc, out = _cli(["scale", "--engine", "fused", "--nodes-count", "16",
+                    "--pods-count", "300", "--pop", "8", "--seed", "3"])
+    torch.cuda.synchronize()
+    assert rc == 0 and fused.fused_sim.launches == before + 1
+    got = json.loads(out)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    pop = parametric.init_population(gen, 8, noise=0.1)
+    res = make_population_eval(synthetic_workload(16, 300, seed=3),
+                               engine="fused", device=cuda)(pop)
+    assert got["score_min"] == round(float(res.policy_score.min()), 4)
+    assert got["score_max"] == round(float(res.policy_score.max()), 4)
+    assert got["mode"] == "vmap on 1 device" or torch.cuda.device_count() > 1
+
+
+def test_cli_mem_sample_reports_device_watermarks(cuda):
+    rc, out = _cli(["mem", "--sample"])
+    rec = json.loads(out)
+    assert rc == 0 and len(rec["devices"]) == torch.cuda.device_count()
+    for row in rec["devices"]:
+        assert row["platform"] == "gpu"
+        assert row["bytes_limit"] == torch.cuda.get_device_properties(
+            row["id"]).total_memory
+        assert 0 <= row["bytes_in_use"] <= row["peak_bytes_in_use"]
+
+
+def test_cli_mem_drill_vm_swap_leak_on_card(cuda):
+    rc, out = _cli(["mem", "--drill", "vm_swap_leak", "--swaps", "4",
+                    "--batches", "8"])
+    res = json.loads(out)
+    assert rc == 0 and res["ok"], res
+    assert res["drift_count"] == 0 and res["drift_bytes"] == 0
+
+
+def test_cli_evolve_profile_on_card_attributes_95pct(cuda, tmp_path,
+                                                     monkeypatch):
+    from fks_tpu_torch import cli
+
+    monkeypatch.setattr(cli, "_parse_workload",
+                        lambda args: synthetic_workload(8, 12, seed=0))
+    run_dir = tmp_path / "run"
+    rc, _ = _cli(["evolve", "--fake-llm", "--generations", "2",
+                  "--profile", "--run-dir", str(run_dir)])
+    assert rc == 0
+    rows = [json.loads(line) for line in
+            (run_dir / "metrics.jsonl").read_text().splitlines()]
+    prof = [r for r in rows if r["kind"] == "device_profile"]
+    total = [r for r in prof if r["stage"] == "__total__"]
+    assert len(total) == 1 and total[0]["attributed_fraction"] >= 0.95
+    assert {"setup", "seed", "codegen", "rank", "ledger",
+            "device-eval"} <= {r["stage"] for r in prof}
+    # the batched tier's first launch of each bucket priced its graphs
+    fps = [r for r in rows if r["kind"] == "memory_footprint"]
+    assert fps and all(r["component"] == "evolve" for r in fps)

@@ -181,7 +181,15 @@ def test_null_profiler_is_inert():
         assert h.sync(5) == 5
     obs.NULL_PROFILER.segment_tick()
     assert obs.NULL_PROFILER.records == []
-    with pytest.raises(ValueError, match="queue 1 item 6"):
-        obs.StageProfiler(enabled=True)
+    # the enabled profiler records stages
+    rows = Capture()
+    prof = obs.StageProfiler(enabled=True, recorder=rows)
+    with prof.stage("codegen", generation=1) as h:
+        h.annotate(lanes=3)
+        assert h.sync(5) == 5
+    prof.close()
+    assert [r["stage"] for r in prof.records] == ["codegen"]
+    assert prof.records[0]["lanes"] == 3
+    assert [k for _, k, _ in rows.rows] == ["device_profile"]
     from fks_tpu_torch.utils.logging import get_logger
     assert get_logger("x").name == "fks_tpu_torch.x"
