@@ -120,8 +120,9 @@ Phases (any failure raises and exits non-zero):
    (a) ``ServeEngine`` selftest (8 queries of 4 pods: ok, max_drift 0.0,
    placements equal the unbatched reference) and the pinned answers of
    ``tests/fixtures/serve_pins.json``; (b) graph captures at warmup, then
-   per (pod bucket 16/64/256, lane bucket 1/8) 20 warm queries (24 at
-   lane bucket 8; 10 at 256 pods x 1 lane, cut from 20 for phase 15):
+   per (pod bucket 16/64/256, lane bucket 1/8) 20 warm queries at 1 lane
+   and 24 at 8 (cut for phases 15 and 16: at 1 lane 5 at 64 pods and 3
+   at 256, at 8 lanes 16 at 256 pods):
    p50/p99 per-query latency, steps per batch, ms per step (graph
    replays), H2D bytes per query, and zero captures on the warm path; one
    257-pod query in the 1,024-pod bucket, timed (a 1,024-pod query was
@@ -131,7 +132,8 @@ Phases (any failure raises and exits non-zero):
    fresh engine and the pins, and back; (d) ``ServeService`` +
    ``make_http_server``: 3 concurrent ``POST /query`` answered in one batch
    equal (a)'s, ``GET /healthz``; (e) ``ParitySentinel.audit_served`` over
-   the served answers of (a)-(d): zero alerts;
+   the served answers of (b) and (d) and two each of (a) and (c) (the
+   rest are held to the pins; cut for phase 16): zero alerts;
 13. the device mesh and the champion portfolio (``parallel.mesh``,
    ``portfolio``) on 4 logical shards of the one card: the sharded
    fused, exact, code and suite evals, the generation step and sharded
@@ -190,8 +192,30 @@ Phases (any failure raises and exits non-zero):
    ``loadgen --duration 5`` (the hermetic template champion): fks_tpu's
    four gated keys, no failed request; (h) ``mem
    --sample`` with the card's watermarks, ``mem --drill vm_swap_leak``
-   at 10 swaps x 40 batches with zero allocator drift;
-16. one ``{"kernels": [...]}`` line, then the last line
+   at 10 swaps x 40 batches with zero allocator drift; (e)'s run
+   directory is read again in phase 16;
+16. reading runs back and the tooling (in process, no ``--cpu``; each
+   command must exit with its expected code; seconds per case, and both
+   kernels' launches counted around each case): (a) ``report`` (showing
+   the profiler's attributed share), ``export-metrics``, ``compare`` of
+   the directory against itself (exit 0), ``watch --once`` and ``layout``
+   on phase 15 (e)'s ``evolve --profile`` run directory and on
+   ``tests/fixtures/golden_run``, and ``spans --critical-path
+   --min-fraction 0.95`` on the former; (b) ``obs.explore_layouts`` on 4
+   logical shards of the card (fks_tpu's ``cli layout --explore``
+   workload: ``synthetic_workload(16, 32, seed=0)``, ``default8``, pop
+   64, the flat engine) into a temporary ``RunHistory``: 3 layouts,
+   parity 0, ``param_score`` launched, each probe's first-call and
+   steady seconds; then ``layout --explore --history-root <tmp>`` on the
+   real card count; (c) ``tools.profile_step`` at the default trace's
+   shapes and lanes 1, 16 and 256, cut to 512 steps per variant: us per
+   step of every variant, ``param_score`` launched; (d)
+   ``tools.measure_tiers`` on the first 256 pods with 3 candidates (the
+   fewest it takes), without its FakeLLM generation (phase 11 times
+   generations): fks_tpu's keys but ``evolve_*``, no candidate skipped,
+   the exact tier without error and every number finite and positive;
+   (e) ``lint`` of the port: clean;
+17. one ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the fks_tpu package.
@@ -199,6 +223,7 @@ It imports nothing of JAX or of the fks_tpu package.
 from __future__ import annotations
 
 import json
+import math
 import re
 import subprocess
 import sys
@@ -1378,7 +1403,9 @@ def serve_phase(dev, card) -> dict:
         raise AssertionError("phase 12's queries differ from the pins'")
     answers_a = eng.answer_batch(queries)
     d = same_as_pins("(a)", answers_a, pins["champions"][0])
-    served += [("a", q, a) for q, a in zip(queries, answers_a)]
+    # the audit (e) takes two of (a)'s and (c)'s answers: all of them are
+    # held to the pins already (cut from every answer for phase 16)
+    served += [("a", q, a) for q, a in zip(queries[:2], answers_a)]
     log(f"[serve] (a) 8 pinned queries equal tests/fixtures/serve_pins.json"
         f" (placements and scheduled exact, max score |d| {d})")
 
@@ -1394,9 +1421,12 @@ def serve_phase(dev, card) -> dict:
             size = eng.envelope.min_real_pods(bucket)
             size = 4 if bucket == 16 else size
             for lanes in (1, 8):
-                # 10 one-lane queries at the 256-pod bucket (4-5 s each;
-                # 20 before phase 15 needed the room)
-                count = (10 if bucket == 256 else 20) if lanes == 1 else 24
+                # 20 one-lane queries at 16 pods, 5 at 64 (1.4 s each)
+                # and 3 at 256 (4-5 s each); 24 at eight lanes, 16 at 256
+                # pods (5-6 s per batch): cut from 20 and 24 for phases 15
+                # and 16
+                count = ({16: 20, 64: 5, 256: 3}[bucket] if lanes == 1
+                         else 16 if bucket == 256 else 24)
                 lat, replays, steps = [], 0, []
                 h2d0, q0 = eng.h2d_bytes_total, eng.h2d_queries
                 for b0 in range(0, count, lanes):
@@ -1472,7 +1502,7 @@ def serve_phase(dev, card) -> dict:
             raise AssertionError("(c) the swapped engine differs from a "
                                  "fresh engine on the second champion")
     same_as_pins("(c) swapped", swapped, pins["champions"][1])
-    served += [("c", q, a) for q, a in zip(queries, swapped)]
+    served += [("c", q, a) for q, a in zip(queries[:2], swapped)]
     veng.swap_program(old)
     same_as_pins("(c) swapped back", veng.answer_batch(queries),
                  pins["champions"][0])
@@ -2212,11 +2242,13 @@ CLI_FUSED_SHAPE = (16, 8152)
 CLI_FLAT_SHAPE = (1000, 10000)
 
 
-def cli_phase(dev, card) -> dict:
+def cli_phase(dev, card, evolve_run_dir) -> dict:
     """Phase 15 (module docstring): the command line on the card, in
     process through ``fks_tpu_torch.cli.main`` with no ``--cpu``; every
     command's exit code must be 0 (a nonzero one raises). Returns the
-    seconds of each command and the numbers the summary line carries."""
+    seconds of each command and the numbers the summary line carries.
+    ``evolve_run_dir`` (a path that does not exist yet, owned by the
+    caller: phase 16 reads it) is (e)'s ``evolve --run-dir``."""
     import contextlib
     import io
     import tempfile
@@ -2397,7 +2429,7 @@ def cli_phase(dev, card) -> dict:
     pins = json.loads((ROOT / "tests" / "fixtures"
                        / "evolve_cli_prefix256_pins.json").read_text())
     (work / "config.json").write_text(json.dumps(pins["config"]))
-    run_dir = work / "evolve_run"
+    run_dir = Path(evolve_run_dir)
     keep = cli._parse_workload
     cli._parse_workload = lambda args: TraceParser().parse_workload(
         max_pods=CLI_EVOLVE_PODS)
@@ -2506,6 +2538,218 @@ def cli_phase(dev, card) -> dict:
     tmp.cleanup()
     out["total_s"] = time.perf_counter() - t_phase
     log(f"[cli] phase {out['total_s']:.1f} s; card {card}")
+    return out
+
+
+#: phase 16 (b): fks_tpu's ``cli layout --explore`` workload
+#: (``synthetic_workload(16, 32, seed)``, default8, pop 64) on 4 logical
+#: shards of the card; (c) the step profiler's cut depth; (d) the tier
+#: benchmark's prefix and candidates (the fewest it takes), and the keys
+#: it must return without its generation
+EXPLORE_SHARDS = 4
+PROFILE_STEPS = 512
+PROFILE_LANES = (1, 16, 256)
+TIERS_PODS = 256
+TIERS_CANDIDATES = 3
+TIERS_KEYS = {
+    "device", "engine", "workload", "vm_first_s", "vm_skipped_candidates",
+    "vm_warm_s", "vm_tier_hits", "vm_evals_per_sec", "vm_batch_first_s",
+    "vm_batch_pop", "vm_batch_launches", "vm_batch_warm_s",
+    "vm_batch_evals_per_sec", "jit_compile_run_s", "jit_warm_s",
+    "parametric_pop", "parametric_sweep_s", "parametric_evals_per_sec",
+    "exact_best_fit_s", "exact_events", "exact_us_per_event"}
+
+
+def readback_phase(dev, card, evolve_run_dir) -> dict:
+    """Phase 16 (module docstring): reading runs back and the tooling, in
+    process, no ``--cpu``; every command must exit with its expected
+    code. ``evolve_run_dir`` is phase 15 (e)'s ``evolve --profile`` run
+    directory. Both kernels' launches are counted around each case."""
+    import contextlib
+    import io
+    import tempfile
+
+    import torch
+
+    from fks_tpu_torch import cli
+    from fks_tpu_torch.data import TraceParser
+    from fks_tpu_torch.data.synthetic import synthetic_workload
+    from fks_tpu_torch.models import parametric
+    from fks_tpu_torch.obs import NULL
+    from fks_tpu_torch.obs.history import RunHistory
+    from fks_tpu_torch.obs.layout import explore_layouts
+    from fks_tpu_torch.ops import _ext
+    from fks_tpu_torch.scenarios import get_suite
+    from fks_tpu_torch.sim import fused
+    from fks_tpu_torch.tools import measure_tiers, profile_step
+
+    _ext.fused_sim_library()
+    _ext.param_score_library()
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    work = Path(tmp.name)
+    out = {"seconds": {}, "launches": {"fused_sim": 0, "param_score": 0},
+           "launches_by_case": {}}
+
+    def counts():
+        return {"fused_sim": fused.fused_sim.launches,
+                "param_score": parametric.score.launches}
+
+    @contextlib.contextmanager
+    def case(tag):
+        """Seconds and kernel launches of one case (read just before and
+        just after it)."""
+        torch.cuda.synchronize()
+        before = counts()
+        t0 = time.perf_counter()
+        yield
+        torch.cuda.synchronize()
+        out["seconds"][tag] = time.perf_counter() - t0
+        delta = {k: v - before[k] for k, v in counts().items()}
+        out["launches_by_case"][tag] = delta
+        for k, v in delta.items():
+            out["launches"][k] += v
+
+    def run(argv, want_rc=0):
+        """``cli.main(argv)``'s stdout; raises unless it exits
+        ``want_rc``."""
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+        if rc != want_rc:
+            raise AssertionError(f"cli {' '.join(argv)} exited {rc} (want "
+                                 f"{want_rc}):\n{buf.getvalue()}")
+        return buf.getvalue()
+
+    # (a) the read-back commands on phase 15 (e)'s run and the golden run
+    golden = str(ROOT / "tests" / "fixtures" / "golden_run")
+    total = [json.loads(line) for line in
+             (Path(evolve_run_dir) / "metrics.jsonl").read_text()
+             .splitlines()]
+    (total,) = [r for r in total if r.get("kind") == "device_profile"
+                and r.get("stage") == "__total__"]
+    share = f"attributed {100 * total['attributed_fraction']:.1f}% of"
+    with case("a"):
+        for d in (str(evolve_run_dir), golden):
+            text = run(["report", d])
+            if d != golden and share not in text:
+                raise AssertionError(f"(a) report lacks '{share}':\n{text}")
+            exported = run(["export-metrics", d])
+            if not exported.endswith("# EOF\n"):
+                raise AssertionError("(a) export-metrics: no # EOF")
+            run(["compare", d, d])
+            run(["watch", d, "--once"])
+            run(["layout", "--run-dir", d])
+        spans = run(["spans", str(evolve_run_dir), "--critical-path",
+                     "--min-fraction", "0.95"])
+        out["critical_path"] = spans.strip().splitlines()[1:]
+    log(f"[readback] (a) report, export-metrics, compare (exit 0), watch "
+        f"--once, layout on the evolve run and the golden run; the report "
+        f"shows '{share}'; spans --critical-path:\n{spans.rstrip()}")
+
+    # (b) the layout explorer on logical shards of the card, then the CLI
+    # on the real card count; the priors land in a temporary root only
+    root = work / "history"
+    root.mkdir()
+    suite = get_suite("default8", synthetic_workload(16, 32, seed=0))
+    with case("b"):
+        summary = explore_layouts(
+            suite, devices=[dev] * EXPLORE_SHARDS, population=64,
+            engine="flat", recorder=NULL, history=RunHistory(str(root)),
+            workload_key="pop64_default8")
+    if summary["layouts_probed"] != 3 or summary["parity_max_abs"] != 0.0:
+        raise AssertionError(f"(b) explorer: {summary}")
+    if out["launches_by_case"]["b"]["param_score"] == 0:
+        raise AssertionError("(b) the explorer never launched param_score")
+    prior = RunHistory(str(root)).layout_prior("pop64_default8",
+                                               str(EXPLORE_SHARDS))
+    if prior is None or prior["layout_key"] != summary["best_layout_key"]:
+        raise AssertionError(f"(b) layout prior {prior}")
+    out["explore"] = {
+        "probes": [{k: p[k] for k in ("mesh_shape", "layout_key",
+                                      "first_call_seconds",
+                                      "steady_seconds",
+                                      "pad_waste_fraction",
+                                      "parity_max_abs")}
+                   for p in summary["probes"]],
+        "layout_best_over_default": summary["layout_best_over_default"]}
+    for p in summary["probes"]:
+        log(f"[readback] (b) layout {p['mesh_shape']} {p['layout_key']}: "
+            f"first call {p['first_call_seconds']} s (graph captures), "
+            f"steady {p['steady_seconds']} s, pad waste "
+            f"{p['pad_waste_fraction']}, parity {p['parity_max_abs']}")
+    with case("b-cli"):
+        shown = json.loads(run(["layout", "--explore", "--engine", "flat",
+                                "--history-root", str(root)]))
+    if shown["devices"] != torch.cuda.device_count() \
+            or shown["parity_max_abs"] != 0.0:
+        raise AssertionError(f"(b) layout --explore: {shown}")
+    log(f"[readback] (b) {EXPLORE_SHARDS} logical shards: "
+        f"{summary['layouts_probed']} layouts, parity 0, best "
+        f"{summary['best_mesh_shape']} "
+        f"({summary['layout_best_over_default']}x the default); "
+        f"layout --explore on {shown['devices']} card(s): "
+        f"{shown['layouts_probed']} layout(s), steady "
+        f"{shown['best_steady_seconds']} s; priors only under the "
+        f"temporary root")
+
+    # (c) the step profiler at the default trace's shapes, steps cut
+    lines = []
+    with case("c"):
+        rows, prof = profile_step.profile(
+            TraceParser().parse_workload(), PROFILE_STEPS, PROFILE_LANES,
+            dev, log=lines.append)
+    if {n for _, n, _ in rows} != set(profile_step.VARIANTS):
+        raise AssertionError(f"(c) variants {rows}")
+    if out["launches_by_case"]["c"]["param_score"] == 0:
+        raise AssertionError("(c) the profiler never launched param_score")
+    prof_json = profile_step.payload(rows, PROFILE_LANES, PROFILE_STEPS,
+                                     profile_step.device_name(dev), prof)
+    out["profile_step"] = {f"{n}@l{ln}": u for ln, n, u in rows}
+    log("[readback] (c) profile_step, " + f"{PROFILE_STEPS} steps per "
+        "variant (captured 16-step chunks between CUDA events), us per "
+        f"step; card {card}:\n" + "\n".join(
+            lines + profile_step.summary_lines(rows, PROFILE_LANES)))
+    widths = {k: v for k, v in prof_json.items() if k.startswith("lanes")}
+    log(f"[readback] (c) --json: {json.dumps(widths)}")
+
+    # (d) the tier benchmark on the first pods
+    with case("d"):
+        tiers = measure_tiers.measure(
+            TraceParser().parse_workload(max_pods=TIERS_PODS),
+            candidates=TIERS_CANDIDATES, generation=False, device=dev)
+    # the tool isolates the exact tier's faults and skips failed VM
+    # candidates; here either fails the phase
+    if "exact_error" in tiers:
+        raise AssertionError(f"(d) the exact tier failed: "
+                             f"{tiers['exact_error']}")
+    if set(tiers) != TIERS_KEYS:
+        raise AssertionError(f"(d) keys {sorted(set(tiers) ^ TIERS_KEYS)} "
+                             f"differ: {tiers}")
+    numbers = {k: v for k, v in tiers.items()
+               if k != "vm_skipped_candidates" and not isinstance(v, str)}
+    if tiers["vm_skipped_candidates"] != 0 \
+            or tiers["vm_tier_hits"] != TIERS_CANDIDATES \
+            or tiers["vm_batch_pop"] != TIERS_CANDIDATES \
+            or tiers["workload"] != f"16x{TIERS_PODS}" \
+            or not all(math.isfinite(v) and v > 0 for v in numbers.values()):
+        raise AssertionError(f"(d) measure_tiers: {tiers}")
+    out["tiers"] = tiers
+    log(f"[readback] (d) measure_tiers on the first {TIERS_PODS} pods, "
+        f"{TIERS_CANDIDATES} candidates, no generation; no candidate "
+        f"skipped, the exact tier held, every number finite and positive; "
+        f"card {card}: {json.dumps(tiers)}")
+
+    # (e) the port lints clean
+    with case("e"):
+        shown = run(["lint"])
+    log(f"[readback] (e) {shown.strip().splitlines()[-1]}")
+    tmp.cleanup()
+    out["total_s"] = time.perf_counter() - t_phase
+    log(f"[readback] seconds per case "
+        f"{ {k: round(v, 2) for k, v in out['seconds'].items()} }; "
+        f"launches by case {out['launches_by_case']}; phase "
+        f"{out['total_s']:.1f} s; card {card}")
     return out
 
 
@@ -2756,8 +3000,11 @@ def main() -> int:
         f"transpiled tier, no hand kernel)")
 
     # ---- 15. the command line
+    import tempfile
+    kept = tempfile.TemporaryDirectory()
+    evolve_run_dir = Path(kept.name) / "evolve_run"
     fused.fused_sim.launches = parametric.score.launches = 0
-    summary["cli"] = cli_phase(dev, card)
+    summary["cli"] = cli_phase(dev, card, evolve_run_dir)
     cli_launches = summary["cli"]["launches"]
     if not all(cli_launches.values()):
         raise AssertionError(f"phase 15 left a kernel unlaunched: "
@@ -2766,6 +3013,17 @@ def main() -> int:
     log(f"[cli] kernel launches in phase 15 (the commands' own, by "
         f"command {summary['cli']['launches_by_command']}): "
         f"{cli_launches}")
+
+    # ---- 16. reading back and tooling
+    fused.fused_sim.launches = parametric.score.launches = 0
+    summary["readback"] = readback_phase(dev, card, evolve_run_dir)
+    kept.cleanup()
+    rb_launches = summary["readback"]["launches"]
+    if rb_launches["param_score"] == 0:
+        raise AssertionError(f"phase 16 never launched param_score: "
+                             f"{rb_launches}")
+    ps_launches["16"] = rb_launches["param_score"]
+    log(f"[readback] kernel launches in phase 16: {rb_launches}")
 
     # ---- summary
     log(f"[summary] {json.dumps(summary)}")
@@ -2794,7 +3052,8 @@ def main() -> int:
         "launches_by_phase": {"4": launches,
                               "13": mesh_launches["fused_sim"],
                               "14": control_launches["fused_sim"],
-                              "15": cli_launches["fused_sim"]},
+                              "15": cli_launches["fused_sim"],
+                              "16": rb_launches["fused_sim"]},
         "mesh_launches_per_eval": {
             "1_shard": summary["mesh"]["launches_per_eval_1"],
             "4_logical_shards": summary["mesh"]["launches_per_eval_4"]},

@@ -1,8 +1,8 @@
-"""Static analysis: the candidate pre-flight.
+"""Static analysis: the candidate pre-flight and the repo linter.
 
-Port of fks_tpu.analysis's ``candidate`` module. Its repo linter
-(``analysis/lint.py``) checks JAX lowerings and waits for the rest of
-``obs/`` (ROADMAP queue 1 item 6).
+Port of fks_tpu.analysis. ``candidate`` is imported eagerly (pure stdlib
+plus the funsearch tables); ``lint`` (the capture-invariant lint behind
+``cli lint``) is imported on its own, as fks_tpu's is.
 """
 from fks_tpu_torch.analysis.candidate import (
     REJECT_TAXONOMY, CostEstimate, PreflightReport, fingerprint,

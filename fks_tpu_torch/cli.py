@@ -1,8 +1,8 @@
 """The port's command line: ``python -m fks_tpu_torch.cli <command> ...``.
 
-Port of fks_tpu.cli's run commands (fks_tpu/cli.py; the parsers at
-:1668-2257), with fks_tpu's flags, defaults, printed JSON and tables,
-``--metrics`` rows and exit codes:
+Port of fks_tpu.cli, all 20 of its subcommands (fks_tpu/cli.py; the
+parsers at :1668-2257), with fks_tpu's flags, defaults, printed JSON and
+tables, ``--metrics`` rows and exit codes:
 
     bench [--policies a,b,...] [--trace F] [--nodes F] [--f64]
     simulate --policy best_fit [--f64] [--validate]
@@ -15,6 +15,13 @@ Port of fks_tpu.cli's run commands (fks_tpu/cli.py; the parsers at
     trace-diff --engines exact,flat [--policy P | --code F] [--scenario I]
     scenarios [--suite NAME [--scenario I]]
     mem [--run-dir DIR | --sample | --drill NAME]
+    report DIR | export-metrics DIR [--out F] | watch DIR [--once]
+    spans DIR [--trace ID | --slowest N | --check-complete |
+               --critical-path]
+    compare BASELINE|auto CANDIDATE [--threshold SPEC] [--history-root R]
+    trends ROOT [--fail-on-alert] [--write-index]
+    layout [--run-dir DIR | --explore [--devices N] [--history-root R]]
+    lint [PATHS ...]
     traces
 
 ``bench`` prints the policy table, ``simulate`` one policy's JSON,
@@ -25,7 +32,20 @@ service, ``trace-diff`` replays one policy through two engines and
 reports the first divergent step (exit 0 none, 1 divergence, 2 error),
 ``scenarios`` lists or describes scenario suites, ``mem`` renders a run's
 memory view, takes one watermark sample or runs a memory drill, and
-``traces`` lists the trace files. ``serve``, ``portfolio`` and
+``traces`` lists the trace files. ``report``, ``export-metrics``,
+``watch``, ``spans`` and ``layout`` read a run directory back (either
+package's: the text is fks_tpu's), ``compare`` and ``trends`` judge runs
+against each other and their history (exit 1 on a regression or, with
+``--fail-on-alert``, an alert; 2 on bad input), ``layout --explore``
+measures every valid layout of a suite over the devices, and ``lint``
+checks the port's captured step bodies (``analysis.lint``; the port has
+no jaxpr pins, so ``--pins`` and ``--write-pins`` exit 2). As in
+fks_tpu, two of them write into a history root: ``layout --explore``
+its ``layouts.json`` prior into ``--history-root`` when that directory
+exists (default ``$FKS_BENCH_RESULTS_DIR``, else ``benchmarks/results``,
+which ``compare --baseline auto`` also reads), and ``trends
+--write-index`` its ``history.jsonl`` into ROOT. ``serve``,
+``portfolio`` and
 ``pipeline`` serve champions, a routed portfolio of them and the
 promotion pipeline. Every command but ``trace-diff`` and ``traces``
 takes fks_tpu's common flags: ``--cpu``, ``--metrics F`` (JSONL metric
@@ -1175,6 +1195,370 @@ def cmd_mem(args) -> int:
     return 0
 
 
+def cmd_report(args) -> int:
+    """Render a flight-recorder run directory (written by ``--run-dir``)
+    back into fks_tpu's summary — generations table with a fitness
+    sparkline, budget rungs, the profiler's attribution, SLOs, tenants,
+    memory, layouts, captures and span hotspots — from the JSONL files
+    alone (fks_tpu/cli.py:1087)."""
+    from fks_tpu_torch.obs.report import render_report
+
+    try:
+        print(render_report(args.run_dir))
+    except FileNotFoundError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    return 0
+
+
+def cmd_export_metrics(args) -> int:
+    """Render a run directory as OpenMetrics text exposition; ``--out``
+    replaces the file atomically (fks_tpu/cli.py:1102)."""
+    from fks_tpu_torch.obs.exporter import to_openmetrics
+
+    try:
+        text = to_openmetrics(args.run_dir)
+    except (FileNotFoundError, ValueError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    if args.out:
+        # atomic replace: a scraper must never read a half-written file
+        tmp = args.out + ".tmp"
+        with open(tmp, "w") as f:
+            f.write(text)
+        os.replace(tmp, args.out)
+        print(f"wrote {args.out}", file=sys.stderr)
+    else:
+        sys.stdout.write(text)
+    return 0
+
+
+def cmd_watch(args) -> int:
+    """Live-tail a run directory with a heartbeat liveness verdict
+    (HEALTHY / STALE / DEAD at 2x / 10x the run's own cadence); exits 0
+    when the run finishes ok, 1 on error status or a dead run, 2 when it
+    is no run directory (fks_tpu/cli.py:1126)."""
+    from fks_tpu_torch.obs.exporter import watch
+
+    try:
+        return watch(args.run_dir, interval=args.interval, once=args.once)
+    except (FileNotFoundError, ValueError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    except KeyboardInterrupt:
+        return 0
+
+
+def cmd_spans(args) -> int:
+    """Causal-trace viewer over a run directory's ``trace_span`` events
+    (``obs.trace_ctx``): list traces, one request's waterfall
+    (``--trace``, an unambiguous id prefix too), the slowest requests
+    (``--slowest``), every served request's complete waterfall
+    (``--check-complete``), or each generation's critical path
+    (``--critical-path``, gated by ``--min-fraction``); fks_tpu's text
+    and exit codes (fks_tpu/cli.py:1142)."""
+    from fks_tpu_torch.obs import trace_ctx
+    from fks_tpu_torch.obs.report import load_run
+
+    try:
+        _meta, events, metrics = load_run(args.run_dir)
+    except FileNotFoundError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    spans = trace_ctx.trace_spans(events)
+    by = trace_ctx.traces_by_id(spans)
+
+    if args.trace:
+        match = by.get(args.trace)
+        if match is None:  # allow unambiguous prefixes (ids are long)
+            hits = [t for t in by if t.startswith(args.trace)]
+            if len(hits) != 1:
+                print(f"error: trace {args.trace!r} "
+                      f"{'is ambiguous' if hits else 'not found'} "
+                      f"({len(by)} traces in run)", file=sys.stderr)
+                return 2
+            match = by[hits[0]]
+        print(trace_ctx.render_waterfall(match))
+        return 0
+
+    def _root(tid):
+        roots = [s for s in by[tid] if not s.get("parent_id")]
+        return roots[0] if len(roots) == 1 else None
+
+    if args.check_complete:
+        # the metric stream is the ground truth for what was served; the
+        # event stream must reconstruct each such request's waterfall
+        served = [m for m in metrics if m.get("kind") == "serve_request"
+                  and m.get("trace_id")]
+        bad = [m["trace_id"] for m in served
+               if not trace_ctx.waterfall_complete(by.get(m["trace_id"], []))]
+        print(f"served requests: {len(served)}  "
+              f"complete waterfalls: {len(served) - len(bad)}")
+        for tid in bad[:10]:
+            print(f"  INCOMPLETE {tid}")
+        if not served:
+            print("error: no traced serve_request metrics in run",
+                  file=sys.stderr)
+            return 1
+        return 1 if bad else 0
+
+    if args.critical_path:
+        gens = sorted(t for t in by if _root(t) is not None
+                      and _root(t).get("path") == "generation")
+        if not gens:
+            print("error: no generation traces in run", file=sys.stderr)
+            return 1
+        failed = 0
+        print(f"{'trace':<22} {'wall s':>8} {'attr %':>7} "
+              f"{'dev-idle s':>10} {'llm-idle s':>10}  bounding")
+        for tid in gens:
+            cp = trace_ctx.critical_path(by[tid])
+            if not cp.get("ok"):
+                failed += 1
+                print(f"{tid:<22} (no root span)")
+                continue
+            frac = cp["attributed_fraction"]
+            low = frac < args.min_fraction
+            failed += low
+            print(f"{tid:<22} {cp['wall_seconds']:>8.3f} "
+                  f"{frac * 100:>6.1f}% {cp['device_idle_seconds']:>10.3f} "
+                  f"{cp['llm_idle_seconds']:>10.3f}  "
+                  f"{cp['bounding_stage']}"
+                  f"{'  << below min-fraction' if low else ''}")
+        return 1 if failed else 0
+
+    order = sorted(
+        by, key=lambda t: -max(float(s.get("seconds", 0.0))
+                               for s in by[t]))
+    if args.slowest:
+        shown = [t for t in order
+                 if _root(t) is not None
+                 and _root(t).get("path") == trace_ctx.SERVE_ROOT]
+        for tid in shown[: args.slowest]:
+            print(trace_ctx.render_waterfall(by[tid]))
+            print()
+        if not shown:
+            print("error: no serve/request traces in run", file=sys.stderr)
+            return 1
+        return 0
+
+    print(f"{len(by)} traces, {len(spans)} spans")
+    for tid in order[:30]:
+        root = _root(tid)
+        path = root.get("path", "?") if root else "(torn)"
+        wall = max(float(s.get("seconds", 0.0)) for s in by[tid])
+        print(f"  {tid:<24} {path:<16} {wall * 1e3:>10.3f} ms  "
+              f"{len(by[tid])} spans")
+    if len(by) > 30:
+        print(f"  ... {len(by) - 30} more (use --trace/--slowest)")
+    return 0
+
+
+def cmd_compare(args) -> int:
+    """Cross-run regression gate (``obs.compare``): diff two run dirs or
+    bench JSONL files on the shared metric vocabulary and exit 1 when the
+    candidate regresses past a threshold, 2 on bad input. ``--baseline
+    auto`` (the word ``auto`` as BASELINE) resolves the best healthy run
+    under ``--history-root`` (fks_tpu/cli.py:1242)."""
+    from fks_tpu_torch.obs.compare import (
+        compare_runs, format_comparison, has_regression,
+        parse_threshold_overrides,
+    )
+
+    baseline = args.baseline
+    if baseline == "auto":
+        from fks_tpu_torch.obs.history import resolve_auto_baseline
+
+        root = args.history_root or _default_history_root()
+        baseline = resolve_auto_baseline(root)
+        if baseline is None:
+            print(f"error: no healthy historical run under {root} to "
+                  "auto-select as baseline", file=sys.stderr)
+            return 2
+        print(f"auto baseline: {baseline}", file=sys.stderr)
+    try:
+        thresholds = (parse_threshold_overrides(args.threshold)
+                      if args.threshold else None)
+        rows = compare_runs(baseline, args.candidate,
+                            thresholds=thresholds)
+    except (FileNotFoundError, ValueError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    print(format_comparison(rows, baseline, args.candidate))
+    return 1 if has_regression(rows) else 0
+
+
+def _default_history_root() -> str:
+    """``$FKS_BENCH_RESULTS_DIR``, else benchmarks/results under the repo
+    root (fks_tpu/cli.py:1282)."""
+    return os.environ.get("FKS_BENCH_RESULTS_DIR") or os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        "benchmarks", "results")
+
+
+def cmd_trends(args) -> int:
+    """Cross-run trend report (``obs.history``): index every run dir and
+    bench evidence file under ROOT, render per-metric sparklines, flag
+    regressions with the robust z-score pass. Exit 0 rendered, 1 with
+    ``--fail-on-alert`` when a metric alerted, 2 bad or empty root
+    (fks_tpu/cli.py:1293)."""
+    from fks_tpu_torch.obs.history import RunHistory
+    from fks_tpu_torch.obs.report import sparkline
+
+    try:
+        hist = RunHistory(args.root)
+        hist.scan()
+    except FileNotFoundError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    if not hist.entries:
+        print(f"error: no runs indexed under {args.root}", file=sys.stderr)
+        return 2
+    if args.write_index:
+        path = hist.write_index()
+        print(f"indexed {len(hist.entries)} entries -> {path}",
+              file=sys.stderr)
+    metrics = ([m.strip() for m in args.metric.split(",") if m.strip()]
+               if args.metric else None)
+    reports = hist.trends(metrics=metrics, window=args.window, z=args.z)
+    print(f"trend report: {len(hist.entries)} indexed entries "
+          f"under {args.root}")
+    total_alerts = 0
+    with _flight_recorder(args, "trends") as rec:
+        for rep in reports:
+            rec.metric("trend_report",
+                       {k: rep[k] for k in ("metric", "runs", "alerts",
+                                            "higher_is_better", "window",
+                                            "z", "values", "labels")})
+            arrow = ("higher=better" if rep["higher_is_better"]
+                     else "lower=better")
+            print(f"\n{rep['metric']}  ({rep['runs']} runs, {arrow})")
+            print(f"  {sparkline(rep['values'])}  latest "
+                  f"{rep['values'][-1]:g}")
+            for a in rep["alerts"]:
+                total_alerts += 1
+                print(f"  ALERT {a['direction']} at {a['run']}: "
+                      f"{a['value']:g} vs prior median {a['median']:g} "
+                      f"(robust z {a['z']:+.1f})")
+    if not reports:
+        print("\nno watched metrics present in the indexed entries")
+    print(f"\n{total_alerts} trend alert(s)")
+    if total_alerts and args.fail_on_alert:
+        return 1
+    return 0
+
+
+def cmd_layout(args) -> int:
+    """Layout observability (``obs.layout``; fks_tpu/cli.py:1571). View
+    (default): the per-layout cost ledger of ``--run-dir``'s JSONL.
+    ``--explore``: measure every valid layout of the (population x suite)
+    shape over the devices (``--devices N``: the first N CUDA devices, or
+    N logical CPU shards with ``--cpu``; default every card, or the one
+    CPU), persist the best into the ``RunHistory`` under
+    ``--history-root`` when that directory exists, and print the summary
+    JSON; exit 1 when the chosen layout (``--mesh-shape CxS``, default
+    the candidates-only layout) is measurably dominated, 2 on a
+    ``--mesh-shape`` that is not among the valid layouts."""
+    if args.explore:
+        from fks_tpu_torch.data.synthetic import synthetic_workload
+        from fks_tpu_torch.obs import get_recorder
+        from fks_tpu_torch.obs.layout import explore_layouts
+        from fks_tpu_torch.parallel.mesh import cuda_devices
+        from fks_tpu_torch.scenarios import get_suite
+
+        if _device(args) == "cpu":
+            devices = ["cpu"] * (args.devices or 1)
+        else:
+            devices = cuda_devices(args.devices or None)
+        wl = synthetic_workload(16, 32, seed=args.seed)
+        suite = get_suite(args.suite, wl)
+        wkey = f"pop{args.pop}_{args.suite}"
+        history = None
+        root = args.history_root or _default_history_root()
+        if os.path.isdir(root):
+            from fks_tpu_torch.obs.history import RunHistory
+            history = RunHistory(root)
+        engine = args.engine if args.engine != "fused" else "flat"
+        with _flight_recorder(args, "layout"):
+            summary = explore_layouts(
+                suite, devices=devices, population=args.pop, engine=engine,
+                recorder=get_recorder(), history=history,
+                workload_key=wkey)
+        chosen = summary["default_layout_key"]
+        chosen_steady = summary["default_steady_seconds"]
+        if args.mesh_shape:
+            match = [p for p in summary["probes"]
+                     if p["mesh_shape"] == args.mesh_shape]
+            if not match:
+                shapes = [p["mesh_shape"] for p in summary["probes"]]
+                print(f"error: --mesh-shape {args.mesh_shape} not among "
+                      f"the valid layouts {shapes}", file=sys.stderr)
+                return 2
+            chosen = match[0]["layout_key"]
+            chosen_steady = match[0]["steady_seconds"]
+        best = summary["best_steady_seconds"]
+        dominated = (summary["best_layout_key"] != chosen
+                     and best > 0
+                     and chosen_steady / best > 1.05)
+        summary["chosen_layout_key"] = chosen
+        summary["chosen_dominated"] = dominated
+        print(json.dumps(summary, indent=2))
+        if dominated:
+            print(f"DOMINATED: chosen layout {chosen} is "
+                  f"{chosen_steady / best:.2f}x slower than "
+                  f"{summary['best_layout_key']}", file=sys.stderr)
+            return 1
+        return 0
+    if not args.run_dir:
+        print("error: layout needs --run-dir DIR (view mode) or "
+              "--explore", file=sys.stderr)
+        return 2
+    from fks_tpu_torch.obs.report import _layout_section, load_run
+
+    try:
+        _meta, _events, metrics = load_run(args.run_dir)
+    except FileNotFoundError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    lines = _layout_section(metrics)
+    if not lines:
+        print(f"(no layout records in {args.run_dir} — ledger rows land "
+              "when a sharded entry point runs under --run-dir)")
+        return 0
+    print("\n".join(lines))
+    return 0
+
+
+def cmd_lint(args) -> int:
+    """The capture-invariant lint (``analysis.lint``; fks_tpu/cli.py:1419)
+    over the given paths (default: the port's package): exit 0 clean, 1
+    findings, 2 error; one ``lint_report`` row under ``--run-dir``. The
+    port has no jaxpr pins: ``--pins`` and ``--write-pins`` exit 2,
+    ``--no-pins`` changes nothing."""
+    from fks_tpu_torch.analysis import lint
+
+    if args.pins or args.write_pins:
+        print("error: the port has no jaxpr pins (a captured CUDA graph "
+              "has no lowered program to hash); lint checks the captured "
+              "step bodies only", file=sys.stderr)
+        return 2
+    paths = args.paths or [os.path.dirname(os.path.abspath(__file__))]
+    findings = lint.lint_paths(paths)
+    for f in findings:
+        print(f)
+    ok = not findings
+    with _flight_recorder(args, "lint") as rec:
+        rec.metric("lint_report", {
+            "paths": list(paths),
+            "findings": [f.to_json() for f in findings],
+            "pin_drift": [],
+            "ok": ok,
+        })
+    print(f"lint: {len(findings)} finding(s), 0 pin message(s) -> "
+          f"{'clean' if ok else 'FAIL'}")
+    return 0 if ok else 1
+
+
 def cmd_traces(args) -> int:
     """Dataset discovery (fks_tpu/cli.py:1654)."""
     from fks_tpu_torch.data import TraceParser
@@ -1649,6 +2033,148 @@ def build_parser() -> argparse.ArgumentParser:
                          "mesh); accepted for its command lines, the "
                          "drills here run one engine on one device")
     mm.set_defaults(fn=cmd_mem)
+
+    r = sub.add_parser("report",
+                       help="summarize a flight-recorder run directory")
+    r.add_argument("run_dir", help="directory written by --run-dir")
+    r.set_defaults(fn=cmd_report)
+
+    x = sub.add_parser("export-metrics",
+                       help="render a run directory as OpenMetrics text")
+    x.add_argument("run_dir", help="directory written by --run-dir")
+    x.add_argument("--out", default="",
+                   help="write to this file (atomic replace) instead of "
+                        "stdout — point a node_exporter textfile "
+                        "collector at it")
+    x.set_defaults(fn=cmd_export_metrics)
+
+    w = sub.add_parser("watch",
+                       help="live-tail a run directory with a heartbeat "
+                            "liveness verdict")
+    w.add_argument("run_dir", help="directory written by --run-dir")
+    w.add_argument("--interval", type=float, default=5.0,
+                   help="seconds between polls (default 5)")
+    w.add_argument("--once", action="store_true",
+                   help="print one snapshot + verdict and exit")
+    w.set_defaults(fn=cmd_watch)
+
+    sp = sub.add_parser("spans",
+                        help="causal-trace viewer: per-request latency "
+                             "waterfalls and evolve critical paths")
+    sp.add_argument("run_dir", help="directory written by --run-dir")
+    sp.add_argument("--trace", metavar="ID",
+                    help="render the waterfall of one trace "
+                         "(unambiguous id prefix accepted)")
+    sp.add_argument("--slowest", type=int, metavar="N",
+                    help="render the N slowest serve/request waterfalls")
+    sp.add_argument("--check-complete", action="store_true",
+                    help="exit 1 unless every traced serve_request "
+                         "reconstructs a complete waterfall")
+    sp.add_argument("--critical-path", action="store_true",
+                    help="per-generation critical path with device-idle "
+                         "vs LLM-idle seconds")
+    sp.add_argument("--min-fraction", type=float, default=0.95,
+                    help="with --critical-path: fail if any generation "
+                         "attributes less than this fraction of its "
+                         "wall (default 0.95)")
+    sp.set_defaults(fn=cmd_spans)
+
+    c = sub.add_parser("compare",
+                       help="regression-gate a candidate run against a "
+                            "baseline (exit 1 on regression)")
+    c.add_argument("baseline", help="run dir or bench JSONL file")
+    c.add_argument("candidate", help="run dir or bench JSONL file")
+    c.add_argument("--threshold", default="",
+                   help="comma-separated overrides, e.g. "
+                        "'evals_per_sec=rel:0.2,best_score=abs:1e-4'")
+    c.add_argument("--history-root", default="",
+                   help="with BASELINE 'auto': the history root to select "
+                        "the best healthy run from (default: "
+                        "benchmarks/results, or $FKS_BENCH_RESULTS_DIR)")
+    c.set_defaults(fn=cmd_compare)
+
+    tr = sub.add_parser(
+        "trends",
+        help="cross-run trend report over a directory of run dirs / bench "
+             "evidence (exit 1 with --fail-on-alert on regressions)")
+    tr.add_argument("root",
+                    help="directory holding flight-recorder run dirs "
+                         "and/or bench JSONL evidence files (e.g. "
+                         "benchmarks/results)")
+    tr.add_argument("--metric", default="",
+                    help="comma-separated metrics to watch (default: the "
+                         "built-in TREND_METRICS vocabulary)")
+    tr.add_argument("--window", type=int, default=5,
+                    help="prior-run window the robust median/MAD is "
+                         "computed over (default 5)")
+    tr.add_argument("--z", type=float, default=3.5,
+                    help="robust z-score threshold (MAD units, default "
+                         "3.5; the MAD is floored at 2%% of the median so "
+                         "flat series don't false-positive)")
+    tr.add_argument("--fail-on-alert", action="store_true",
+                    help="exit 1 when any watched metric alerts (the CI "
+                         "gate mode)")
+    tr.add_argument("--write-index", action="store_true",
+                    help="persist the scanned entries to ROOT/history.jsonl "
+                         "(atomic replace)")
+    tr.add_argument("--run-dir", default="",
+                    help="flight-recorder run directory for the "
+                         "trend_report records")
+    tr.set_defaults(fn=cmd_trends)
+
+    ln = sub.add_parser(
+        "lint",
+        help="capture-invariant AST lints over the port's captured step "
+             "bodies (exit 1 on findings)")
+    ln.add_argument("paths", nargs="*",
+                    help="files/directories to lint (default: "
+                         "fks_tpu_torch)")
+    ln.add_argument("--pins", default="",
+                    help="fks_tpu's pin manifest flag: the port has no "
+                         "jaxpr pins, so it exits 2")
+    ln.add_argument("--write-pins", action="store_true",
+                    help="fks_tpu's flag: the port has no jaxpr pins, so "
+                         "it exits 2")
+    ln.add_argument("--no-pins", action="store_true",
+                    help="fks_tpu's flag; accepted, changes nothing (the "
+                         "port checks no pins)")
+    ln.add_argument("--cpu", action="store_true",
+                    help="fks_tpu's flag; accepted (the lint runs no "
+                         "device work)")
+    ln.add_argument("--run-dir", default="",
+                    help="flight-recorder run directory for the "
+                         "lint_report record")
+    ln.set_defaults(fn=cmd_lint)
+
+    ly = sub.add_parser(
+        "layout",
+        help="layout observability: per-layout cost ledger view of a "
+             "run, or --explore to measure every valid layout of a "
+             "(population x suite x mesh) shape (exit 1 when the chosen "
+             "layout is measurably dominated)",
+        parents=[common])
+    ly.add_argument("--explore", action="store_true",
+                    help="enumerate + probe every valid layout and print "
+                         "the summary JSON (persists the best into "
+                         "RunHistory as a prior)")
+    ly.add_argument("--devices", type=int, default=0,
+                    help="explore over the first N CUDA devices (raises "
+                         "with fewer), or with --cpu over N logical CPU "
+                         "shards; unlike fks_tpu, it does not require "
+                         "--cpu (0 = every card, or the one CPU)")
+    ly.add_argument("--pop", type=int, default=64,
+                    help="explore population size (default 64)")
+    ly.add_argument("--suite", default="default8",
+                    help="scenario suite to explore (default: default8)")
+    ly.add_argument("--mesh-shape", default="",
+                    help="the chosen CxS layout to defend (e.g. 4x2); "
+                         "default: the candidates-only default layout")
+    ly.add_argument("--seed", type=int, default=0,
+                    help="synthetic base-workload seed (default 0)")
+    ly.add_argument("--history-root", default="",
+                    help="RunHistory root for the layout prior (default: "
+                         "benchmarks/results, or $FKS_BENCH_RESULTS_DIR)")
+    ly.set_defaults(fn=cmd_layout)
 
     t = sub.add_parser("traces", help="list available trace files")
     t.set_defaults(fn=cmd_traces)

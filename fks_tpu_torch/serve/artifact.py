@@ -252,7 +252,8 @@ def enable_persistent_cache(cache_dir: str) -> None:
     reloaded artifact fetches its compiled binaries. PyTorch has no such
     cache for captured CUDA graphs: a loaded engine captures its graphs
     anew, on first use or in ``warmup()``. This function therefore only
-    makes the directory, and caches nothing (ROADMAP queue 1 item 6)."""
+    makes the directory, and caches nothing (a deliberate divergence,
+    ROADMAP queue 3 item 9)."""
     os.makedirs(cache_dir, exist_ok=True)
 
 

@@ -133,7 +133,54 @@ ARGVS = [
      "--devices", "8", "--cpu"],
     ["mem", "--sample", "--run-dir", "r"],
     ["traces"],
+    ["report", "d"],
+    ["export-metrics", "d", "--out", "o.prom"],
+    ["watch", "d", "--interval", "2", "--once"],
+    ["spans", "d", "--trace", "t", "--slowest", "3", "--check-complete",
+     "--critical-path", "--min-fraction", "0.9"],
+    ["compare", "auto", "c", "--threshold", "best_score=abs:0.1",
+     "--history-root", "h"],
+    ["trends", "h", "--metric", "serve_qps", "--window", "3", "--z", "2.5",
+     "--fail-on-alert", "--write-index", "--run-dir", "r"],
+    ["lint", "a.py", "b", "--pins", "p.json", "--write-pins", "--no-pins",
+     "--cpu", "--run-dir", "r"],
+    ["layout", "--explore", "--cpu", "--devices", "8", "--pop", "8",
+     "--suite", "smoke3", "--mesh-shape", "4x2", "--seed", "1",
+     "--history-root", "h", "--engine", "flat", "--metrics", "m.jsonl"],
+    ["layout", "--run-dir", "r"],
 ]
+
+
+def test_the_port_registers_every_subcommand():
+    def names(cli):
+        ap = cli.build_parser() if hasattr(cli, "build_parser") else None
+        if ap is None:  # fks_tpu builds its parser inside main
+            grabbed = {}
+
+            class Stop(Exception):
+                pass
+
+            real = fk_cli.argparse.ArgumentParser.parse_args
+
+            def grab(self, argv=None, namespace=None):
+                grabbed["ap"] = self
+                raise Stop
+
+            fk_cli.argparse.ArgumentParser.parse_args = grab
+            try:
+                cli.main([])
+            except Stop:
+                pass
+            finally:
+                fk_cli.argparse.ArgumentParser.parse_args = real
+            ap = grabbed["ap"]
+        (sub,) = [a for a in ap._actions
+                  if a.__class__.__name__ == "_SubParsersAction"]
+        return set(sub.choices)
+
+    want = names(fk_cli)
+    assert len(want) == 20
+    assert names(pt_cli) == want
 
 
 @pytest.mark.parametrize("argv", ARGVS, ids=lambda a: "-".join(a[:2]))

@@ -42,6 +42,16 @@ def test_port_never_imports_jax_or_fks_tpu():
     assert not bad, bad
 
 
+def test_scan_covers_the_read_back_and_tool_modules():
+    """The read-back modules, the lint and the profiling tools are port
+    files like any other: the scan reaches them."""
+    files = set(port_files())
+    for rel in ("tools/profile_step.py", "tools/measure_tiers.py",
+                "tools/__init__.py", "analysis/lint.py", "obs/compare.py",
+                "obs/exporter.py", "obs/history.py", "obs/report.py"):
+        assert ROOT / "fks_tpu_torch" / rel in files, rel
+
+
 def test_chip_smoke_is_scanned_and_clean():
     """chip_smoke.py runs on the card machine, where JAX is not installed:
     the scan covers it, and it imports neither JAX nor fks_tpu."""
