@@ -42,8 +42,9 @@ Phases (any failure raises and exits non-zero):
    ``vm.score_static``; its launches are then counted from 0 around
    phases 6, 8, 10 and 11 (each must launch it). ``param_score_phase``
    runs alone too (it builds its kernel);
-5. ``ParametricEvolution`` for 3 generations at pop 256 on the fused
-   engine: the best score must not decrease;
+5. (``ParametricEvolution`` on the fused engine, 3 generations at pop
+   256: folded into phase 17 (a), 20 generations through the discover
+   tool);
 6. the exact heap engine (plain PyTorch ops, and ``param_score`` for the
    parametric policy; ``SYNC_EVERY`` steps per captured CUDA graph): ``golden_micro`` through
    ``micro_best_fit``; the full default trace through ``best_fit`` and
@@ -52,8 +53,10 @@ Phases (any failure raises and exits non-zero):
    step under ``torch.cuda.set_sync_debug_mode("error")`` for its eager
    steps and graph replays; ``make_population_eval(engine="exact")`` at
    pop 256 on phase 4's population (the parametric policy through the
-   ``param_score`` kernel), then lane 4 (the champion) alone, which must
-   equal its batched result exactly (lane 0 alone was cut for phase 12);
+   ``param_score`` kernel) (lane 4 alone against its batched result was
+   cut for phase 17, whose (b) holds the exact engine's batched search
+   score to the champion re-scored alone; lane 0 alone was cut for phase
+   12);
 7. the policies on the card: every zoo policy (``ZOO``,
    ``BASELINE_FACTORIES``, ``micro_best_fit``) and ``parametric.score``,
    in float32 and float64, on 4 x 256 random views; the integer scores
@@ -78,8 +81,9 @@ Phases (any failure raises and exits non-zero):
    discovered champions, transpiled and lowered to the funsearch VM, in
    float64 and float32 on 4 x 256 random views — the VM's integer scores
    on the card equal the transpiled policy's on the card and on the CPU;
-   the 15 programs stacked (capacity 512, 16 lanes) through the exact and
-   the flat engine in float64 on the first 512 pods of the default trace,
+   the 15 programs stacked (capacity 512, 16 lanes) through the exact
+   engine (the flat engine's run was cut for phase 17) in float64 on the
+   first 512 pods of the default trace,
    every lane's score, scheduled pods and events held to
    ``tests/fixtures/vm_prefix512_pins.json`` (fks_tpu's VM population),
    timed: seconds per eval, the longest lane's steps, ms per step (graph
@@ -210,12 +214,31 @@ Phases (any failure raises and exits non-zero):
    real card count; (c) ``tools.profile_step`` at the default trace's
    shapes and lanes 1, 16 and 256, cut to 512 steps per variant: us per
    step of every variant, ``param_score`` launched; (d)
-   ``tools.measure_tiers`` on the first 256 pods with 3 candidates (the
+   ``tools.measure_tiers`` on the first 128 pods (256 before phase 17)
+   with 3 candidates (the
    fewest it takes), without its FakeLLM generation (phase 11 times
    generations): fks_tpu's keys but ``evolve_*``, no candidate skipped,
    the exact tier without error and every number finite and positive;
    (e) ``lint`` of the port: clean;
-17. one ``{"kernels": [...]}`` line, then the last line
+17. the last entry points (in process, no ``--cpu``; seconds per case,
+   and both kernels' launches counted from 0 around each case): (a)
+   ``tools.discover --engine fused --pop 256 --gens 20 --init-from`` the
+   0.5365 champion on the full default trace, into temporary ``--out``,
+   ``--checkpoint`` and ``--metrics`` paths: ``fused_sim`` launched once
+   per generation, the best score never decreasing, the champion file and
+   the stdout record in fks_tpu's schema, seconds per generation and of
+   the exact re-scoring (``param_score``); (b) ``--engine exact --pop 4
+   --elite-k 1 --gens 1`` from the same file: the search's best at least
+   the champion's exact 0.5364651 (less 1e-6), the exact re-scoring alone
+   equal to the batched search score within 1e-9, ``param_score``
+   launched; (c) ``entry.entry()`` on the card within 1e-6 of the CPU's,
+   and ``entry.dryrun_multichip(4)`` on logical shards of the card (every
+   sharded result equal to its single-device run); (d) the runner's
+   ``trends_gate`` and ``trace_gate`` without ``--cpu``: both ok; (e)
+   ``tools.probe_floor`` parts A-B and ``tools.probe_ops`` at lanes 16 and
+   256, 256 steps each: us per step printed, every number finite and
+   positive;
+18. one ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the fks_tpu package.
@@ -310,8 +333,7 @@ def exact_phase(dev, wl, params, card) -> None:
     from fks_tpu_torch.sim import engine
     from fks_tpu_torch.sim.engine import SYNC_EVERY, SimConfig
     from fks_tpu_torch.testing import (
-        assert_golden_micro, assert_golden_parity, assert_result_matches,
-        golden_micro_workload, result_fields,
+        assert_golden_micro, assert_golden_parity, golden_micro_workload,
     )
 
     fixtures = ROOT / "tests" / "fixtures"
@@ -397,15 +419,9 @@ def exact_phase(dev, wl, params, card) -> None:
         f"{wall / longest * 1e6:.1f} us per step of the longest lane, best "
         f"{float(scores.max()):.6f}, champion lane {float(scores[4]):.6f}, "
         f"card {card}")
-    want = result_fields(batched)
-    for lane in (4,):
-        alone = make_population_eval(wl, cfg=cfg, engine="exact",
-                                     device=dev)(params[lane:lane + 1])
-        assert_result_matches(alone, {k: v[lane:lane + 1]
-                                      for k, v in want.items()},
-                              rtol=0, atol=0)
-    log(f"[exact] lane 4 alone equals its batched result exactly; "
-        f"phase {time.perf_counter() - t_phase:.1f} s")
+    # a lane alone against its batched result: phase 17 (b) (the exact
+    # search's pop-4 score against the champion re-scored alone)
+    log(f"[exact] phase {time.perf_counter() - t_phase:.1f} s")
 
 
 def zoo_phase(dev) -> None:
@@ -637,8 +653,9 @@ def code_phase(dev, card) -> dict:
         f"== transpiled on the card == transpiled on the CPU "
         f"({time.perf_counter() - t_phase:.1f} s)")
 
-    # (b, c) the 15 programs stacked (capacity 512, 16 lanes) through the
-    # exact and the flat engine on the first 512 pods, float64
+    # (b) the 15 programs stacked (capacity 512, 16 lanes) through the
+    # exact engine on the first 512 pods, float64 (the flat engine's run,
+    # 54.5 s, was cut for phase 17)
     wl = TraceParser().parse_workload(max_pods=pins["pods"]).to(dev)
     progs = [vm.compile_policy(c, 16, 8, capacity=512) for c in codes]
     progs += [progs[-1]] * (vm.bucket_lanes(len(progs)) - len(progs))
@@ -646,7 +663,7 @@ def code_phase(dev, card) -> dict:
     lanes = len(progs)
     cfg = SimConfig(score_dtype=torch.float64)
     out = {}
-    for eng in ("exact", "flat"):
+    for eng in ("exact",):
         evaluate = make_population_eval(wl, vm.score_static, cfg,
                                         engine=eng, device=dev)
         torch.cuda.synchronize()
@@ -2549,7 +2566,7 @@ def cli_phase(dev, card, evolve_run_dir) -> dict:
 EXPLORE_SHARDS = 4
 PROFILE_STEPS = 512
 PROFILE_LANES = (1, 16, 256)
-TIERS_PODS = 256
+TIERS_PODS = 128  # 256 before phase 17
 TIERS_CANDIDATES = 3
 TIERS_KEYS = {
     "device", "engine", "workload", "vm_first_s", "vm_skipped_candidates",
@@ -2752,6 +2769,181 @@ def readback_phase(dev, card, evolve_run_dir) -> dict:
         f"{out['total_s']:.1f} s; card {card}")
     return out
 
+#: phase 17: the discovered-policy schema of tools/discover.py
+DISCOVER_KEYS = {"score", "generation", "code", "timestamp", "search_score",
+                 "engine", "weights"}
+#: phase 17 (a): generations of the fused search at POP
+DISCOVER_GENS = 20
+#: phase 17 (b): the 0.5365 champion's exact-engine score (its file's)
+CHAMPION_EXACT = 0.5364651
+#: phase 17 (e): steps of the probes and their widths
+PROBE_STEPS = 256
+PROBE_LANES = (16, 256)
+
+
+def entry_points_phase(dev, card) -> dict:
+    """Phase 17 (module docstring): the last entry points, in process, on
+    the card: champion discovery (fused, then exact), ``entry`` and
+    ``dryrun_multichip``, two gates of the runner, the probes. Both
+    kernels' launches are counted around each case."""
+    import contextlib
+    import io
+    import tempfile
+
+    import torch
+
+    from fks_tpu_torch import entry
+    from fks_tpu_torch.models import parametric
+    from fks_tpu_torch.ops import _ext
+    from fks_tpu_torch.sim import fused
+    from fks_tpu_torch.tools import (
+        discover, probe_floor, probe_ops, run_full_suite,
+    )
+
+    _ext.fused_sim_library()
+    _ext.param_score_library()
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    work = Path(tmp.name)
+    out = {"seconds": {}, "launches_by_case": {}}
+
+    def counts():
+        return {"fused_sim": fused.fused_sim.launches,
+                "param_score": parametric.score.launches}
+
+    @contextlib.contextmanager
+    def case(tag):
+        """Seconds and kernel launches of one case (the counts set to 0
+        just before it and read just after)."""
+        torch.cuda.synchronize()
+        fused.fused_sim.launches = parametric.score.launches = 0
+        t0 = time.perf_counter()
+        yield
+        torch.cuda.synchronize()
+        out["seconds"][tag] = time.perf_counter() - t0
+        out["launches_by_case"][tag] = counts()
+
+    def run_discover(tag, argv):
+        """``discover.main(argv)`` into ``work/tag``: (record, saved file,
+        metric rows, stderr)."""
+        d = work / tag
+        d.mkdir()
+        argv = argv + ["--out", str(d / "out"), "--checkpoint",
+                       str(d / "ck"), "--metrics", str(d / "m.jsonl")]
+        so, se = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(so), contextlib.redirect_stderr(se):
+            rc = discover.main(argv)
+        if rc != 0:
+            raise AssertionError(f"discover {argv} exited {rc}:\n"
+                                 f"{se.getvalue()}")
+        record = json.loads(so.getvalue().splitlines()[-1])
+        (saved,) = (d / "out").iterdir()
+        doc = json.loads(saved.read_text())
+        if set(doc) != DISCOVER_KEYS or set(record) != DISCOVER_KEYS - {
+                "code"} or not re.match(
+                    r"^funsearch_\d{8}_\d{6}_score\d\.\d{4}\.json$",
+                    saved.name) or not (d / "ck.npz").is_file():
+            raise AssertionError(f"discover {tag}: {saved.name} {sorted(doc)}"
+                                 f" is not fks_tpu's schema")
+        rows = [json.loads(line)
+                for line in (d / "m.jsonl").read_text().splitlines()]
+        timing = re.search(r"\((\S+) s per generation\); exact re-scoring "
+                           r"(\S+) s", se.getvalue())
+        out[tag] = {"s_per_generation": float(timing.group(1)),
+                    "rescore_s": float(timing.group(2)),
+                    "score": record["score"],
+                    "search_score": record["search_score"],
+                    "generation": record["generation"]}
+        return record, rows
+
+    # (a) the fused search at pop 256 from the 0.5365 champion
+    with case("a"):
+        record, rows = run_discover("a", [
+            "--engine", "fused", "--pop", str(POP), "--gens",
+            str(DISCOVER_GENS), "--init-from", str(CHAMPION)])
+    bests = [r["best"] for r in rows]
+    if [r["generation"] for r in rows] != list(range(1, DISCOVER_GENS + 1)) \
+            or any(b < a for a, b in zip(bests, bests[1:])) \
+            or any(r["kind"] != "discover_gen" or r["engine"] != "fused"
+                   for r in rows) \
+            or record["generation"] != DISCOVER_GENS \
+            or not 0.0 <= record["score"] <= 1.0:
+        raise AssertionError(f"(a) discover rows {rows}, record {record}")
+    if out["launches_by_case"]["a"]["fused_sim"] != DISCOVER_GENS:
+        raise AssertionError(f"(a) fused_sim launched "
+                             f"{out['launches_by_case']['a']} times, not "
+                             f"once per generation")
+    log(f"[entry] (a) discover --engine fused --pop {POP} --gens "
+        f"{DISCOVER_GENS} --init-from the 0.5365 champion: best "
+        f"{bests[0]:.6f} -> {bests[-1]:.6f} (never decreasing), "
+        f"{out['a']['s_per_generation']:.4f} s per generation, exact "
+        f"re-scoring {out['a']['rescore_s']:.3f} s (score "
+        f"{record['score']:.6f}), launches {out['launches_by_case']['a']}; "
+        f"fks_tpu's schema; card {card}")
+
+    # (b) the exact engine: the champion's exact score carries over, the
+    # search's batched score equals the champion file's re-scoring alone
+    with case("b"):
+        record, rows = run_discover("b", [
+            "--engine", "exact", "--pop", "4", "--elite-k", "1", "--gens",
+            "1", "--init-from", str(CHAMPION)])
+    if record["search_score"] < CHAMPION_EXACT - 1e-6 \
+            or abs(record["score"] - record["search_score"]) > 1e-9 \
+            or out["launches_by_case"]["b"]["param_score"] == 0:
+        raise AssertionError(f"(b) discover exact: {record}, launches "
+                             f"{out['launches_by_case']['b']}")
+    log(f"[entry] (b) discover --engine exact --pop 4 --gens 1: search "
+        f"{record['search_score']:.9f} (>= {CHAMPION_EXACT} - 1e-6), exact "
+        f"re-scoring alone {record['score']:.9f} (within 1e-9), "
+        f"{out['b']['s_per_generation']:.3f} s per generation, re-scoring "
+        f"{out['b']['rescore_s']:.3f} s, launches "
+        f"{out['launches_by_case']['b']}")
+
+    # (c) the driver entry points: one device, then 4 logical shards
+    with case("c"):
+        fn, args = entry.entry()
+        got = float(fn(*args))
+        cfn, cargs = entry.entry(device="cpu")
+        want = float(cfn(*cargs))
+        dry = entry.dryrun_multichip(4)
+    if not abs(got - want) <= 1e-6:
+        raise AssertionError(f"(c) entry {got} != CPU {want}")
+    log(f"[entry] (c) entry() {got:.8f}, the CPU's {want:.8f} (within "
+        f"1e-6); dryrun_multichip(4) "
+        f"on {dry['devices']}: generation step, sharded eval, hybrid mesh "
+        f"and sharded code eval == their single-device runs "
+        f"({out['seconds']['c']:.2f} s, launches "
+        f"{out['launches_by_case']['c']})")
+
+    # (d) two gates of the runner, on the card (no --cpu)
+    with case("d"):
+        gates = {g: getattr(run_full_suite, g)(cpu=False)
+                 for g in ("trends_gate", "trace_gate")}
+    if not all(g["ok"] for g in gates.values()):
+        raise AssertionError(f"(d) gates {gates}")
+    log(f"[entry] (d) run_full_suite {gates} "
+        f"({out['seconds']['d']:.1f} s)")
+
+    # (e) the probes: the loop floor (parts A-B) and the primitives
+    with case("e"):
+        floor = probe_floor.part_a_b(
+            PROBE_STEPS, dev, log=lambda s: log(f"[entry] (e) {s}"))
+        ops = probe_ops.probe(PROBE_LANES, PROBE_STEPS, dev,
+                              log=lambda s: log(f"[entry] (e) {s}"))
+    numbers = [v for row in floor.values() for v in row.values()] + [
+        us for _, _, us in ops]
+    if not all(math.isfinite(v) and v > 0 for v in numbers):
+        raise AssertionError(f"(e) probes {floor} {ops}")
+    out["probe_floor"] = floor
+    out["probe_ops"] = [[ln, n, us] for ln, n, us in ops]
+    tmp.cleanup()
+    out["total_s"] = time.perf_counter() - t_phase
+    log(f"[entry] seconds per case "
+        f"{ {k: round(v, 2) for k, v in out['seconds'].items()} }; "
+        f"launches by case {out['launches_by_case']}; phase "
+        f"{out['total_s']:.1f} s; card {card}")
+    return out
+
 
 def main() -> int:
     if not (ROOT / "fks_tpu_torch" / "csrc" / "fused_sim.cu").is_file():
@@ -2766,7 +2958,6 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     from fks_tpu_torch.convert import load_champion_weights
     from fks_tpu_torch.data import TraceParser
-    from fks_tpu_torch.funsearch.device_evolution import ParametricEvolution
     from fks_tpu_torch.models import parametric
     from fks_tpu_torch.ops import _ext
     from fks_tpu_torch.parallel import make_population_eval
@@ -2918,20 +3109,7 @@ def main() -> int:
     # ---- 4b. the parametric score kernel against its plain version
     ps = param_score_phase(dev, card)
 
-    # ---- 5. evolution
-    fused.fused_sim.launches = 0
-    t0 = time.perf_counter()
-    pe = ParametricEvolution(wl, pop_size=POP, cfg=cfg, engine="fused",
-                             device=dev, seed=0)
-    pe.run(3)
-    torch.cuda.synchronize()
-    bests = [h.best_score for h in pe.history]
-    if any(b < a for a, b in zip(bests, bests[1:])) or len(bests) != 3:
-        raise AssertionError(f"evolution best score decreased: {bests}")
-    log(f"[evolve] 3 generations pop {POP}: best {bests}, mean "
-        f"{[round(h.mean_score, 6) for h in pe.history]}, "
-        f"{time.perf_counter() - t0:.2f} s, launches "
-        f"{fused.fused_sim.launches}")
+    # (phase 5, ParametricEvolution on the fused engine, is phase 17 (a))
 
     # the parametric score kernel's launches, counted from 0 around each
     # path that runs the parametric policy on the exact or flat engine
@@ -3025,6 +3203,17 @@ def main() -> int:
     ps_launches["16"] = rb_launches["param_score"]
     log(f"[readback] kernel launches in phase 16: {rb_launches}")
 
+    # ---- 17. the last entry points
+    summary["entry"] = entry_points_phase(dev, card)
+    entry_launches = {k: sum(c[k] for c in
+                             summary["entry"]["launches_by_case"].values())
+                      for k in KERNELS}
+    if not all(entry_launches.values()):
+        raise AssertionError(f"phase 17 left a kernel unlaunched: "
+                             f"{entry_launches}")
+    ps_launches["17"] = entry_launches["param_score"]
+    log(f"[entry] kernel launches in phase 17: {entry_launches}")
+
     # ---- summary
     log(f"[summary] {json.dumps(summary)}")
     log(f"[card] {card}")
@@ -3053,7 +3242,8 @@ def main() -> int:
                               "13": mesh_launches["fused_sim"],
                               "14": control_launches["fused_sim"],
                               "15": cli_launches["fused_sim"],
-                              "16": rb_launches["fused_sim"]},
+                              "16": rb_launches["fused_sim"],
+                              "17": entry_launches["fused_sim"]},
         "mesh_launches_per_eval": {
             "1_shard": summary["mesh"]["launches_per_eval_1"],
             "4_logical_shards": summary["mesh"]["launches_per_eval_4"]},

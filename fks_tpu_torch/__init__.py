@@ -24,7 +24,10 @@ evolve loop; champion serving (``serve``, with ``python -m
 fks_tpu_torch.cli serve``); the device mesh (``parallel.mesh``: sharded
 population, generation, code and suite evals and mesh-sharded serving,
 with logical shards standing in for devices); and the champion
-portfolio (``portfolio``, ``python -m fks_tpu_torch.cli portfolio``). Two
+portfolio (``portfolio``, ``python -m fks_tpu_torch.cli portfolio``); the
+control plane, the whole command line and the read-back tooling; and the
+repo's entry points (``entry``, and ``tools``: ``discover``,
+``run_full_suite``, the probes, ``export_node_yaml``). Two
 hand-written Hopper kernels:
 ``csrc/fused_sim.cu`` and ``csrc/param_score.cu`` (``parametric.score``).
 """

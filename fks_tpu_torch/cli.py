@@ -75,8 +75,9 @@ import sys
 def _parse_workload(args):
     from fks_tpu_torch.data import TraceParser
 
-    return TraceParser().parse_workload(node_file=args.nodes,
-                                        pod_file=args.trace)
+    return TraceParser().parse_workload(
+        node_file=args.nodes, pod_file=args.trace,
+        max_pods=getattr(args, "first_pods", None))
 
 
 def _device(args) -> str:
@@ -1454,11 +1455,12 @@ def cmd_layout(args) -> int:
     ``--explore``: measure every valid layout of the (population x suite)
     shape over the devices (``--devices N``: the first N CUDA devices, or
     N logical CPU shards with ``--cpu``; default every card, or the one
-    CPU), persist the best into the ``RunHistory`` under
-    ``--history-root`` when that directory exists, and print the summary
-    JSON; exit 1 when the chosen layout (``--mesh-shape CxS``, default
-    the candidates-only layout) is measurably dominated, 2 on a
-    ``--mesh-shape`` that is not among the valid layouts."""
+    CPU; ``--logical-shards N`` deals N logical shards over them),
+    persist the best into the ``RunHistory`` under ``--history-root``
+    when that directory exists, and print the summary JSON; exit 1 when
+    the chosen layout (``--mesh-shape CxS``, default the candidates-only
+    layout) is measurably dominated, 2 on a ``--mesh-shape`` that is not
+    among the valid layouts."""
     if args.explore:
         from fks_tpu_torch.data.synthetic import synthetic_workload
         from fks_tpu_torch.obs import get_recorder
@@ -1470,6 +1472,10 @@ def cmd_layout(args) -> int:
             devices = ["cpu"] * (args.devices or 1)
         else:
             devices = cuda_devices(args.devices or None)
+        logical = getattr(args, "logical_shards", 0)
+        if logical:
+            # round robin over the devices: several layouts on one card
+            devices = [devices[i % len(devices)] for i in range(logical)]
         wl = synthetic_workload(16, 32, seed=args.seed)
         suite = get_suite(args.suite, wl)
         wkey = f"pop{args.pop}_{args.suite}"
@@ -1703,6 +1709,10 @@ def build_parser() -> argparse.ArgumentParser:
     e.add_argument("--probe-steps", type=int, default=None,
                    help="probe-rung event budget (truncated trace "
                         "prefix; 0 = full trace on the probe suite)")
+    e.add_argument("--first-pods", type=int, default=argparse.SUPPRESS,
+                   help="read only the first N pods of --trace (the port's "
+                        "own flag: a FakeLLM generation on the full trace "
+                        "is VM-bound, tens of minutes on the card)")
     e.add_argument("--profile", action="store_true",
                    help="attribute wall time per pipeline stage (codegen/"
                         "preflight/transpile/device-eval/rank/ledger) with "
@@ -2162,6 +2172,10 @@ def build_parser() -> argparse.ArgumentParser:
                          "with fewer), or with --cpu over N logical CPU "
                          "shards; unlike fks_tpu, it does not require "
                          "--cpu (0 = every card, or the one CPU)")
+    ly.add_argument("--logical-shards", type=int, default=argparse.SUPPRESS,
+                    help="with --explore: explore over N logical shards "
+                         "dealt round robin over the devices (the port's "
+                         "own flag: one card then has several layouts)")
     ly.add_argument("--pop", type=int, default=64,
                     help="explore population size (default 64)")
     ly.add_argument("--suite", default="default8",

@@ -38,10 +38,11 @@ from __future__ import annotations
 import functools
 from typing import NamedTuple, Tuple
 
+import numpy as np
 import torch
 
 from fks_tpu_torch.ops.numerics import fma_f32, trunc_to_int32
-from fks_tpu_torch.sim.types import NodeView, PodView
+from fks_tpu_torch.sim.types import NodeView, PodView, PolicyFn
 
 #: Names of the feature basis, in order (append-only: checkpoints store
 #: weights positionally).
@@ -416,6 +417,27 @@ def score(params, pod: PodView, nodes: NodeView, dtype=torch.float32):
 
 
 score.launches = 0  # kernel launches (CUDA only), reset by callers
+
+
+def as_policy(params, dtype=torch.float32) -> PolicyFn:
+    """Close over a concrete weight vector: a zoo-compatible PolicyFn
+    (fks_tpu.models.parametric.as_policy). ``params`` is a tensor, a
+    numpy array or a list of floats (kept in its own precision until
+    ``score`` casts it to ``dtype``). The weights are copied to a device
+    once, at the policy's first call there: a step's first run is eager
+    (``sim.engine.GraphedChunk`` warms up before it captures), so no
+    copy lands in a captured graph."""
+    w = (params if isinstance(params, torch.Tensor)
+         else torch.as_tensor(np.asarray(params)))
+    placed = {}
+
+    def policy(pod: PodView, nodes: NodeView) -> torch.Tensor:
+        dev = pod.cpu_milli.device
+        if dev not in placed:
+            placed[dev] = w.to(dev)
+        return score(placed[dev], pod, nodes, dtype)
+
+    return policy
 
 
 # ----------------------------------------------------------- seed weights

@@ -3,7 +3,8 @@
 Port of fks_tpu.obs.watchdog:
 
 - ``combined_flags`` OR-reduces a result's numeric flag mask (the
-  in-graph guards live in ``sim.guards``);
+  in-graph guards live in ``sim.guards``), and ``check_result`` turns a
+  tripped mask into a ``watchdog`` event;
 - ``ParitySentinel``: per generation, ``check`` re-scores ``sample``
   candidates of the population through the exact reference evaluator on
   the transpiled tier (``use_vm=False``) and records |Δfitness|; drift
@@ -47,6 +48,25 @@ def combined_flags(numeric_flags: Any) -> int:
     if arr.size == 0:
         return 0
     return int(np.bitwise_or.reduce(arr.reshape(-1).astype(np.int64)))
+
+
+def check_result(result, recorder=None, **context) -> int:
+    """Inspect ``result.numeric_flags`` (any ``SimResult``-shaped object;
+    objects without the field read as clean) and emit fks_tpu's
+    ``watchdog`` event (``flags``, ``kinds`` from ``sim.guards.
+    describe_flags``, and ``context``) when any lane tripped. Returns the
+    combined bitmask."""
+    from fks_tpu_torch.sim.guards import describe_flags
+
+    rec = recorder if recorder is not None else get_recorder()
+    flags = getattr(result, "numeric_flags", None)
+    if flags is None:
+        return 0
+    mask = combined_flags(flags)
+    if mask:
+        rec.event("watchdog", flags=mask, kinds=describe_flags(mask),
+                  **context)
+    return mask
 
 
 class ParitySentinel:

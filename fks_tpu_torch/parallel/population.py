@@ -10,6 +10,7 @@ a shard count or a ``parallel.mesh.Mesh``.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable
 
 import torch
@@ -18,13 +19,42 @@ from fks_tpu_torch.data.entities import Workload
 from fks_tpu_torch.device import resolve_device
 from fks_tpu_torch.models import parametric
 from fks_tpu_torch.sim import get_engine
-from fks_tpu_torch.sim.engine import SimConfig
+from fks_tpu_torch.sim.engine import SimConfig, make_param_run_fn
 from fks_tpu_torch.sim.types import (
     NodeView, PodView, SimResult, as_params, batch_size, map_tensors,
 )
 
 # (params, PodView, NodeView) -> i32[L, N] scores
 ParamPolicyFn = Callable[[torch.Tensor, PodView, NodeView], torch.Tensor]
+
+# one candidate's run shares the engine's loop assembly with the batched
+# path, so single and batched fitness cannot diverge (fks_tpu's alias)
+make_single_run = make_param_run_fn
+
+
+def _leaves(tree):
+    """A tree's leaves in ``jax.tree_util.tree_leaves``' order: dict
+    values by sorted key, list, tuple and NamedTuple items in order,
+    dataclass fields in order; anything else is a leaf."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k])
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    elif dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        for f in dataclasses.fields(tree):
+            yield from _leaves(getattr(tree, f.name))
+    elif tree is not None:
+        yield tree
+
+
+def lead_axis_size(tree) -> int:
+    """Leading-axis length of a batched tree: the candidate count of a
+    population batch or the lane count of a coalesced serve batch
+    (fks_tpu.parallel.population.lead_axis_size): the first leaf's
+    leading size."""
+    return int(next(_leaves(tree)).shape[0])
 
 
 def fused_runner(workload: Workload, param_policy, cfg: SimConfig,
