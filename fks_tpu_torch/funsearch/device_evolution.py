@@ -29,6 +29,7 @@ import torch
 from fks_tpu_torch.data.entities import Workload
 from fks_tpu_torch.device import resolve_device
 from fks_tpu_torch.models import parametric
+from fks_tpu_torch.obs.spans import span
 from fks_tpu_torch.parallel.mesh import (
     Mesh, lead_device, make_sharded_generation_step, next_generation,
     population_mesh, top_k_real,
@@ -83,27 +84,38 @@ class ParametricEvolution:
     def step(self):
         """One generation: (new_params, scores, elite_scores). The step's
         seed comes from the instance's generator."""
-        seed = int(torch.randint(0, 2 ** 62, (1,), generator=self.generator,
-                                 device=self.device))
+        with span("seed"):
+            seed = int(torch.randint(0, 2 ** 62, (1,),
+                                     generator=self.generator,
+                                     device=self.device))
         return self._step(self.params, seed, self.real_count)
 
     def run(self, generations: int,
             on_generation: Optional[Callable[[DeviceGenStats], None]] = None,
             ) -> DeviceGenStats:
-        """Advance ``generations`` steps; params stay on the device."""
+        """Advance ``generations`` steps; params stay on the device. Each
+        generation is a ``gen`` span (``obs.spans``) over the ``seed``
+        draw, the step's ``eval`` and ``select`` and the ``readback`` of
+        its best and mean scores; it carries the engine's device seconds
+        (``engine_device_s``)."""
         last = None
         for _ in range(generations):
-            self.params, scores, elite_scores = self.step()
-            self.generation += 1
-            # elites survive in the leading slots, so row 0 of the NEW
-            # population is the best of this round
-            best = float(elite_scores[0])
-            if best > self.best_score:
-                self.best_score = best
-                self._best_params = self.params[0].clone()
-            real = scores[: self.real_count]
-            last = DeviceGenStats(self.generation, best, float(real.mean()))
-            self.history.append(last)
+            with span("gen"):
+                self.params, scores, elite_scores = self.step()
+                self.generation += 1
+                with span("readback"):
+                    # elites survive in the leading slots, so row 0 of the
+                    # NEW population is the best of this round
+                    best = float(elite_scores[0])
+                    if best > self.best_score:
+                        self.best_score = best
+                        self._best_params = self.params[0].clone()
+                    real = scores[: self.real_count]
+                    last = DeviceGenStats(self.generation, best,
+                                          float(real.mean()))
+                    self.history.append(last)
+                # the read-back completed the fused launches' events
+                self.eval.settle()
             if on_generation is not None:
                 on_generation(last)
         return last

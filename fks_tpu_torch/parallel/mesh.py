@@ -47,6 +47,7 @@ import torch
 
 from fks_tpu_torch.data.entities import Workload
 from fks_tpu_torch.models import parametric
+from fks_tpu_torch.obs.spans import add, elapsed_s, is_open, span
 from fks_tpu_torch.parallel.population import (
     ParamPolicyFn, fused_runner, occupancy_stats, pad_population, pad_stats,
 )
@@ -468,8 +469,11 @@ class ShardedPopulation:
     local shard, on the shard's device, with graphs of its own (the
     fused engine shares one runner per device: its launch holds no
     state). ``run(params)`` launches every shard before it reads any,
-    and returns the local shards' ``SimResult`` on the lead device.
-    ``graphs`` lists each local shard's captured chunks by
+    and returns the local shards' ``SimResult`` on the lead device, inside
+    an ``eval`` span (``obs.spans``) whose stages are ``start``,
+    ``drain`` and ``finish``, or ``launch`` for the fused engine; called
+    under an open span, it keeps the fused launches' CUDA events for
+    ``settle``. ``graphs`` lists each local shard's captured chunks by
     ``sim.engine.graph_key``."""
 
     def __init__(self, workload: Workload, mesh: Mesh,
@@ -480,6 +484,7 @@ class ShardedPopulation:
         self.shards = _local_shards(mesh)
         self.lead = self.shards[0][1]
         self.fused = engine == "fused"
+        self.launches = None  # the fused launches' events, for settle
         wls, states, fused = {}, {}, {}
         mod = None if self.fused else get_engine(engine)
         self.runners, self.state0 = [], []
@@ -503,16 +508,33 @@ class ShardedPopulation:
         return [getattr(run, "graphs", {}) for run in self.runners]
 
     def __call__(self, params) -> SimResult:
-        parts = shard_population(params, self.mesh)
-        if self.fused:
-            results = [run(p) for run, p in zip(self.runners, parts)]
-        else:
-            jobs = [run.start(p, s0) for run, p, s0
-                    in zip(self.runners, parts, self.state0)]
-            drain(jobs)
-            results = [run.finish(job) for run, job
-                       in zip(self.runners, jobs)]
-        return _concat(results, self.lead)
+        self.launches = [] if self.fused and is_open() else None
+        with span("eval"):
+            parts = shard_population(params, self.mesh)
+            if self.fused:
+                with span("launch"):
+                    results = [run(p, self.launches)
+                               for run, p in zip(self.runners, parts)]
+            else:
+                with span("start"):
+                    jobs = [run.start(p, s0) for run, p, s0
+                            in zip(self.runners, parts, self.state0)]
+                with span("drain"):
+                    drain(jobs)
+                with span("finish"):
+                    results = [run.finish(job) for run, job
+                               in zip(self.runners, jobs)]
+            return _concat(results, self.lead)
+
+    def settle(self) -> None:
+        """Add the last evaluation's fused launches' device seconds (their
+        CUDA events) to the open spans as ``engine_device_s``. Call it
+        once a read-back of that evaluation's results has completed them;
+        ``drain`` counts the other engines' own."""
+        if self.launches:
+            add(engine_device_s=sum(elapsed_s(a, b)
+                                    for a, b in self.launches))
+        self.launches = None
 
 
 def make_sharded_eval(workload: Workload, mesh: Mesh,
@@ -572,7 +594,9 @@ def make_sharded_generation_step(workload: Workload, mesh: Mesh,
     ``seed`` is an int. Shard i's offspring come from a generator seeded
     with ``seed`` folded with i, so the new population does not depend
     on which process computes it. ``step.results`` evaluates alone
-    (``make_sharded_eval``'s ``results``)."""
+    (``make_sharded_eval``'s ``results``). The evaluation is the
+    population's ``eval`` span; the score gather, top-k, elites and
+    mutation are the ``select`` span."""
     spec = _resolve_layout(layout)
     pop = ShardedPopulation(workload, mesh, param_policy, cfg, engine)
     n = num_shards(mesh)
@@ -588,11 +612,13 @@ def make_sharded_generation_step(workload: Workload, mesh: Mesh,
 
     def gen_step(params, real_count, seed):
         params = as_params(params).to(lead)
-        scores = gather_shards(mesh, pop(params).policy_score)
-        new, elite_scores = next_generation(
-            params, scores, elite_k,
-            lambda elites: offspring(elites, params.shape[0] // n, seed),
-            real_count)
+        res = pop(params)
+        with span("select"):
+            scores = gather_shards(mesh, res.policy_score)
+            new, elite_scores = next_generation(
+                params, scores, elite_k,
+                lambda elites: offspring(elites, params.shape[0] // n, seed),
+                real_count)
         return new, scores, elite_scores
 
     inner = _layout_eval(gen_step, "gen_step", spec, mesh)

@@ -62,7 +62,7 @@ import torch
 
 from fks_tpu_torch.data.entities import ClusterArrays, PodArrays, Workload
 from fks_tpu_torch.device import resolve_device
-from fks_tpu_torch.obs import telemetry
+from fks_tpu_torch.obs import spans, telemetry
 from fks_tpu_torch.ops.allocator import best_fit_gpus, first_fit_gpus
 from fks_tpu_torch.ops.heap import (
     COL_KIND, COL_POD, KIND_CREATE, KIND_DELETE, KIND_NODE_DOWN,
@@ -708,17 +708,82 @@ class LaneJob:
                 self.state = self.step(self.state)
 
 
+class _ReplayClock:
+    """CUDA events around the graph replays that ``drain`` queues on one
+    stream: their device time, and the device gap from a round's last
+    replay on the stream to the next round's first (the flag reductions,
+    their reads, the host's wake and the next launch). ``turn`` reads a
+    round's events in the next round, after that round's flag reads have
+    completed them and its replays are queued, so nothing waits."""
+
+    __slots__ = ("stream", "queued", "done", "last_end", "device_s",
+                 "gap_s")
+
+    def __init__(self, stream):
+        self.stream = stream
+        self.queued, self.done = [], []  # (start, end) of a round's replays
+        self.last_end = None
+        self.device_s = self.gap_s = 0.0
+
+    def replay(self, job: LaneJob) -> None:
+        start = spans.device_event(self.stream)
+        job.advance()
+        self.queued.append((start, spans.device_event(self.stream)))
+
+    def turn(self) -> None:
+        """Read the round before's replays; keep this round's for the
+        next."""
+        done, self.done, self.queued = self.done, self.queued, []
+        if not done:
+            return
+        if self.last_end is not None:
+            self.gap_s += spans.elapsed_s(self.last_end, done[0][0])
+        self.device_s += sum(spans.elapsed_s(a, b) for a, b in done)
+        self.last_end = done[-1][1]
+
+
 def drain(jobs: Sequence[LaneJob]) -> None:
     """Advance every job until none of its lanes is active. Each round
     queues one advance of every live job before it reads any job's flag,
     so jobs on several devices (or several graphs of one device) run
-    together, and the host reads each round's flags once."""
+    together, and the host reads each round's flags once.
+
+    Under an open span (``obs.spans``) it counts, on that span and its
+    parents: ``rounds``, and for graphed jobs ``replays``, the steps they
+    ran (``steps``) and from CUDA events (``_ReplayClock``) their device
+    seconds (``engine_device_s``) and the device gaps between rounds
+    (``round_gap_s``, summed over streams)."""
     live = list(jobs)
+    timed = spans.is_open()
+    clocks = {}
+    rounds = replays = steps = 0
     while live:
+        rounds += 1
         flags = [job.active() for job in live]
         live = [job for job, flag in zip(live, flags) if job.read(flag)]
         for job in live:
-            job.advance()
+            if job.chunk is None:
+                job.advance()
+                continue
+            replays += 1
+            steps += job.chunk.steps
+            if not timed:
+                job.advance()
+                continue
+            clock = clocks.get(job.stream)
+            if clock is None:
+                clock = clocks[job.stream] = _ReplayClock(job.stream)
+            clock.replay(job)
+        for clock in clocks.values():
+            clock.turn()
+    if not timed:
+        return
+    spans.add(rounds=rounds)
+    if replays:
+        spans.add(replays=replays, steps=steps)
+    if clocks:
+        spans.add(engine_device_s=sum(c.device_s for c in clocks.values()),
+                  round_gap_s=sum(c.gap_s for c in clocks.values()))
 
 
 # ------------------------------------------------------- the exact engine

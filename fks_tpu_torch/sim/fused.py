@@ -11,10 +11,11 @@ Three parts:
 - ``_build_plan``: host-side constants (slot-ordered pod rows, snapshot
   table, node rows) and the same rejections as fks_tpu (fused.py:94-128);
 - ``fused_sim``: the kernel's wrapper. On a CUDA tensor it launches the
-  kernel (counting launches in ``fused_sim.launches``) or raises; on a CPU
-  tensor it runs ``fused_sim_plain``, the plain PyTorch version — the
-  port's flat engine with ``parametric.score_plain``, reshaped into the
-  kernel's raw outputs;
+  kernel (counting launches in ``fused_sim.launches``; given a list
+  ``events``, it appends the launch's two CUDA timing events) or raises;
+  on a CPU tensor it runs ``fused_sim_plain``, the plain PyTorch version
+  — the port's flat engine with ``parametric.score_plain``, reshaped into
+  the kernel's raw outputs;
 - ``make_fused_population_run``: ``run(params[P, 16]) -> SimResult``.
 
 The kernel follows the flat engine where the two JAX engines disagree:
@@ -35,6 +36,7 @@ from fks_tpu_torch.data.entities import Workload
 from fks_tpu_torch.device import resolve_device
 from fks_tpu_torch.models import parametric
 from fks_tpu_torch.models.parametric import NUM_FEATURES
+from fks_tpu_torch.obs import spans
 from fks_tpu_torch.sim import flat
 from fks_tpu_torch.sim.engine import (
     FinalView, SimConfig, finalize_fields, hist_size, loop_tables,
@@ -192,7 +194,7 @@ def fused_sim_plain(plan: _Plan, params: torch.Tensor):
             acci, accf)
 
 
-def _launch(plan: _Plan, params: torch.Tensor):
+def _launch(plan: _Plan, params: torch.Tensor, events=None):
     from fks_tpu_torch.ops import _ext
 
     if params.dtype != torch.float32 or params.dim() != 2 \
@@ -216,11 +218,16 @@ def _launch(plan: _Plan, params: torch.Tensor):
             torch.empty((pop, 8), dtype=torch.float32, device=dev))
     lib = _ext.fused_sim_library()
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+        stream = torch.cuda.current_stream(dev)
+        if events is not None:
+            start = spans.device_event(stream)
         err = lib.fks_fused_sim(
             params.data_ptr(), *(x.data_ptr() for x in consts),
             *(o.data_ptr() for o in outs), pop, q, n, g, plan.hist,
-            plan.klen, plan.max_steps, plan.pending0, *plan.totals, stream)
+            plan.klen, plan.max_steps, plan.pending0, *plan.totals,
+            stream.cuda_stream)
+        if events is not None:
+            events.append((start, spans.device_event(stream)))
     if err != 0:
         raise RuntimeError(
             f"fused_sim kernel launch failed: CUDA error {err} "
@@ -229,12 +236,14 @@ def _launch(plan: _Plan, params: torch.Tensor):
     return outs
 
 
-def fused_sim(plan: _Plan, params: torch.Tensor):
+def fused_sim(plan: _Plan, params: torch.Tensor, events=None):
     """The fused simulation on ``params``' device: the CUDA kernel for a
     CUDA tensor, the plain version for a CPU tensor. Returns the raw
-    outputs ``(aux, cpu, mem, gpu, gmil, acci, accf)``."""
+    outputs ``(aux, cpu, mem, gpu, gmil, acci, accf)``. A list ``events``
+    gets the (start, end) CUDA events of the kernel's launch, for the
+    caller to read once a synchronisation has completed them."""
     if params.is_cuda:
-        return _launch(plan, params)
+        return _launch(plan, params, events)
     if params.device.type != "cpu":
         raise ValueError(f"fused_sim runs on cuda or cpu, not {params.device}")
     return fused_sim_plain(plan, params)
@@ -245,10 +254,10 @@ fused_sim.launches = 0  # kernel launches (CUDA only), reset by callers
 
 def make_fused_population_run(workload: Workload,
                               cfg: SimConfig = SimConfig(), device=None):
-    """``run(params[P, 16]) -> SimResult`` (leading axis P) through the
-    fused kernel on ``device`` (default ``cuda``; ``"cpu"`` runs the plain
-    version). Rejects shapes whose per-lane state does not fit one block's
-    shared memory."""
+    """``run(params[P, 16], events=None) -> SimResult`` (leading axis P;
+    ``events`` as ``fused_sim``'s) through the fused kernel on ``device``
+    (default ``cuda``; ``"cpu"`` runs the plain version). Rejects shapes
+    whose per-lane state does not fit one block's shared memory."""
     dev = resolve_device(device)
     plan = _build_plan(workload, cfg, dev)
     per_lane = smem_bytes(plan.q, plan.n, plan.g, plan.hist)
@@ -264,10 +273,11 @@ def make_fused_population_run(workload: Workload,
     inv = torch.argsort(flat.rank_perm(p.pod_mask, p.tie_rank))
     ctime0 = p.creation_time
 
-    def run(params) -> SimResult:
+    def run(params, events=None) -> SimResult:
         params = torch.as_tensor(params).to(dev, torch.float32).contiguous()
         pop = params.shape[0]
-        aux, cpu, mem, gpu, gmil, acci, accf = fused_sim(plan, params)
+        aux, cpu, mem, gpu, gmil, acci, accf = fused_sim(plan, params,
+                                                         events)
         zero = torch.zeros_like(acci[:, 0])
         an, ag = flat.decode_assignment(aux[:, :pp], None, plan.g, True)
         view = FinalView(

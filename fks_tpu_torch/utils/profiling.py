@@ -69,8 +69,9 @@ def timed(label: str = "", sync: Any = None,
     """Measure a block's wall time. For device work, register the block's
     output via ``t.sync(...)`` so the clock includes the compute;
     ``sync=`` covers values that already exist at entry. ``on_exit``
-    (``Callable[[Timing], None]``) fires after the clock stops — the hook
-    ``obs.spans.span`` records its events through."""
+    (``Callable[[Timing], None]``) fires after the clock stops (fks_tpu's
+    spans record their events through it; ``obs.spans.span`` keeps its
+    own clock)."""
     out = Timing(label=label, _sync=sync)
     t0 = time.perf_counter()
     try:
