@@ -241,6 +241,15 @@ Phases (any failure raises and exits non-zero):
 18. one ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
+Run alone, not from ``main`` (it adds nothing to the script's time):
+``flat_step_phase`` builds ``csrc/flat_step.cu``, holds the flat
+engine's kernel step to the PyTorch step at the benchmark's flat shape
+(32 lanes x 1,213 nodes x 8,152 pods) and times ``flat_pop`` and
+``flat_commit`` there beside their plain versions and bounds:
+
+    python3 -c "import torch, chip_smoke as s; \
+    s.flat_step_phase(torch.device('cuda'), s.nvidia_smi('name,power.limit'))"
+
 It imports nothing of JAX or of the fks_tpu package.
 """
 from __future__ import annotations
@@ -1351,6 +1360,134 @@ def param_score_phase(dev, card) -> dict:
     log(f"[param_score] phase {time.perf_counter() - t_phase:.1f} s")
     return {"max_abs_err": max_err, "times": times, "probe": probe,
             "checked": checked}
+
+
+#: the flat step's timed shape: the benchmark's flat cell
+FLAT_STEP_POP = 32
+FLAT_STEP_REPLAYS = 64  # lockstep replays (1,024 steps), then timed ones
+
+
+def flat_step_phase(dev, card) -> dict:
+    """csrc/flat_step.cu at the benchmark's flat shape (module docstring):
+    the openb1213 park under its 8,152 resampled pods, pop 32, dense,
+    ``track_ctime`` off. The kernel step and the PyTorch step advance in
+    lockstep for ``FLAT_STEP_REPLAYS`` replays, every state tensor equal;
+    then the kernels' device times inside the replayed graph (profiler),
+    the step's time from CUDA events beside the PyTorch step's, each
+    kernel's plain version and an empty launch inside a graph (the
+    floor), and the bytes each kernel reads (its bound)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from fks_tpu_torch.models import parametric
+    from fks_tpu_torch.ops import _ext
+    from fks_tpu_torch.sim import engine, flat, flat_step
+    from fks_tpu_torch.sim.engine import SimConfig
+    from fks_tpu_torch.testing import assert_same_tensors
+    from portbench.harness import Timeline
+    from portbench.loops import inputs
+
+    t_phase = time.perf_counter()
+    _ext.flat_step_library()
+    entry = ""
+    for line in _ext.ptxas_report("flat_step").splitlines():
+        if "Compiling entry" in line:
+            entry = line.split("'")[1]
+        if "Used" in line or "spill" in line:
+            log(f"[flat_step] {entry[-40:]}: {line.strip()}")
+            # float64 division's slow path keeps a few bytes on the stack
+            # in the float64 commit; anything else spilling fails
+            if any(int(n) for n in re.findall(r"(\d+) bytes spill", line)) \
+                    and "flat_commit_kernelId" not in entry:
+                raise AssertionError(f"flat_step spills registers: {line}")
+    cfg_file = ROOT / "portbench" / "configs" / "openb1213.json"
+    wl = inputs.port_workload(json.loads(cfg_file.read_text())).to(dev)
+    cfg = SimConfig(track_ctime=False)
+    params = parametric.init_population(
+        torch.Generator(device=dev).manual_seed(0), FLAT_STEP_POP,
+        noise=0.08)
+    state0 = flat.initial_state(wl, cfg)
+    runs = {name: engine.population_runner(wl, parametric.score, cfg, build,
+                                           flat.finalize, flat.lane_active)
+            for name, build in (("torch", flat.build_torch_step),
+                                ("kernel", flat.build_step))}
+    jobs = {name: run.start(params, state0) for name, run in runs.items()}
+    if not jobs["kernel"].chunk.kernel_step:
+        raise AssertionError("build_step did not build the kernel step")
+    for i in range(FLAT_STEP_REPLAYS):
+        for job in jobs.values():
+            job.advance()
+        assert_same_tensors(jobs["torch"].state, jobs["kernel"].state, i)
+    steps = jobs["kernel"].chunk.steps
+    log(f"[flat_step] {FLAT_STEP_REPLAYS} replays ({FLAT_STEP_REPLAYS * steps}"
+        f" steps) of {FLAT_STEP_POP} lanes x {wl.cluster.n_padded} nodes x "
+        f"{wl.pods.p_padded} pods: every state tensor equal to the PyTorch "
+        f"step's")
+
+    # the step on CUDA events, replays queued behind a spin
+    reps = 32
+    step_us = {name: cuda_ms(job.chunk.replay, reps, hold_s=reps * 6e-3)
+               * 1e3 / steps for name, job in jobs.items()}
+    # the kernels' device times inside the replays
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            jobs["kernel"].chunk.replay()
+        torch.cuda.synchronize()
+    tl = Timeline(prof, 0.0)
+    kernel_us = {}
+    for name in ("flat_pop_kernel", "param_score_kernel",
+                 "flat_commit_kernel"):
+        times = [x * 1e6 for x in tl.durations(name)]
+        if len(times) != reps * steps:
+            raise AssertionError(f"{name}: {len(times)} launches in "
+                                 f"{reps} replays of {steps} steps")
+        kernel_us[name] = sum(times) / len(times)
+
+    # each kernel and its plain version alone on a copy of the state
+    s = engine.map_tensors(torch.clone, jobs["kernel"].state)
+    tab = flat_step.step_tables(wl, cfg, *engine.loop_tables(wl, cfg))
+    rows = torch.zeros((FLAT_STEP_POP, len(flat_step.SCRATCH)),
+                       dtype=torch.int32, device=dev)
+    flat_step.flat_pop(s, rows, tab)
+    raw = parametric.score(params, flat_step.pod_view(rows), engine._node_view(
+        wl.cluster, s.cpu_left, s.mem_left, s.gpu_left, s.gpu_milli_left))
+    one = torch.zeros(1, device=dev)
+    alone = {
+        "flat_pop": lambda: flat_step.flat_pop(s, rows, tab),
+        "pop_plain": lambda: flat_step.pop_plain(s, rows, tab),
+        "flat_commit": lambda: flat_step.flat_commit(s, rows, raw, tab),
+        "commit_plain": lambda: flat_step.commit_plain(s, rows, raw, tab),
+        "empty": lambda: one.add_(0),
+    }
+    alone_us = {k: graph_ms(fn, calls=MARGINAL_CALLS) * 1e3
+                for k, fn in alone.items()}
+    n, g, q, h = wl.cluster.n_padded, wl.cluster.g_padded, wl.pods.p_padded, \
+        tab.h
+    lanes = FLAT_STEP_POP
+    # bytes each reads once: the queue (ev_time, aux) for flat_pop; the
+    # scores, the waiting histogram and the node remnants and totals of a
+    # step that neither snapshots nor fails for flat_commit (a snapshot
+    # or a failed placement adds the GPU remnants, 4 L N G)
+    nbytes = {"flat_pop": 8 * lanes * q,
+              "flat_commit": 4 * lanes * (n + h + 3 * n) + 13 * n}
+    out = {"card": card, "lanes": lanes, "n": n, "g": g, "q": q,
+           "steps_per_replay": steps, "step_us": step_us,
+           "kernel_us": kernel_us, "alone_us": alone_us,
+           "bytes": nbytes,
+           "bound_us": {k: v / HBM_BYTES_PER_S * 1e6
+                        for k, v in nbytes.items()}}
+    log(f"[flat_step] step: kernel {step_us['kernel']:.2f} us, PyTorch "
+        f"{step_us['torch']:.2f} us (CUDA events over {reps} replays); in "
+        f"the replays flat_pop {kernel_us['flat_pop_kernel']:.2f} us, "
+        f"param_score {kernel_us['param_score_kernel']:.2f}, flat_commit "
+        f"{kernel_us['flat_commit_kernel']:.2f} (profiler); alone, "
+        f"marginal in a {MARGINAL_CALLS}-call graph: "
+        + ", ".join(f"{k} {v:.2f} us" for k, v in alone_us.items())
+        + f"; bytes {nbytes}, bound at {HBM_BYTES_PER_S / 1e12} TB/s "
+        f"{out['bound_us']}; card {card}")
+    log(f"[flat_step] phase {time.perf_counter() - t_phase:.1f} s")
+    print(json.dumps({"flat_step": out}), flush=True)
+    return out
 
 
 def serve_phase(dev, card) -> dict:

@@ -11,19 +11,21 @@ stalls, and a host-side value is frozen into the graph at capture time.
 tree stays clean without per-site waivers. A function is a *captured
 body* when
 
-1. it is defined (at any depth) inside a function named ``build_step``:
-   the exact engine's step (``sim/engine.py``) and the flat engine's
-   (``sim/flat.py``). Every runner binds one of these through
-   ``sim.engine.bind_step`` before ``GraphedChunk`` captures it: the
-   population runners, the sharded and suite runners, and the serve
-   engines (``serve/artifact.py`` binds ``mod.build_step``);
+1. it is defined (at any depth) inside a function named ``build_step``
+   or ``build_<name>_step``: the exact engine's step
+   (``sim/engine.py``) and the flat engine's two (``sim/flat.py``'s
+   PyTorch step, ``sim/flat_step.py``'s kernel step). Every runner binds
+   one of these through ``sim.engine.bind_step`` before ``GraphedChunk``
+   captures it: the population runners, the sharded and suite runners,
+   and the serve engines (``serve/artifact.py`` binds
+   ``mod.build_step``);
 2. or the module marks it as a policy a captured step calls, by
    assigning its ``graph_steps`` attribute (``f.graph_steps = ...``): the
    funsearch VM's ``score`` and ``score_static`` (``funsearch/vm.py``),
    whose op slots run inside every captured VM step;
 3. or it is a function of the same module that a captured body calls by
-   its bare name, transitively (the VM's ``_execute`` and its helpers,
-   the engines' row and view helpers).
+   its bare name outside its host branches (below), transitively (the
+   VM's ``_execute`` and its helpers, the engines' row and view helpers).
 
 The host path is sanctioned: a branch under an ``if`` whose test checks
 that a tensor lives on the CPU (``<x>.device.type == "cpu"``; the
@@ -85,6 +87,7 @@ from __future__ import annotations
 
 import ast
 import dataclasses
+import re
 from pathlib import Path
 from typing import Dict, Iterable, List, Optional, Sequence, Set
 
@@ -163,8 +166,14 @@ def _graph_step_marks(tree: ast.Module) -> Set[str]:
 
 
 def _called_names(fn: ast.AST) -> Set[str]:
-    return {n.func.id for n in ast.walk(fn)
+    """The bare names ``fn`` calls where a capture can run it (its host
+    branches left out, ``_device_nodes``)."""
+    return {n.func.id for n in _device_nodes(fn)
             if isinstance(n, ast.Call) and isinstance(n.func, ast.Name)}
+
+
+#: the functions whose inner functions are captured steps
+_STEP_BUILDER = re.compile(r"build(_\w+)?_step")
 
 
 def captured_bodies(tree: ast.Module) -> List[ast.AST]:
@@ -173,7 +182,7 @@ def captured_bodies(tree: ast.Module) -> List[ast.AST]:
         n.name: n for n in tree.body if isinstance(n, _FUNC)}
     roots: List[ast.AST] = []
     for node in ast.walk(tree):
-        if isinstance(node, _FUNC) and node.name == "build_step":
+        if isinstance(node, _FUNC) and _STEP_BUILDER.fullmatch(node.name):
             roots.extend(n for n in ast.walk(node)
                          if isinstance(n, _FUNC) and n is not node)
     roots.extend(module_fns[n] for n in sorted(_graph_step_marks(tree))

@@ -106,3 +106,16 @@ def param_score_library() -> ctypes.CDLL:
     lib.fks_cuda_error_string.argtypes = [ctypes.c_int]
     lib.fks_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def flat_step_library() -> ctypes.CDLL:
+    """``csrc/flat_step.cu`` with its C signatures declared."""
+    lib = load("flat_step")
+    p = ctypes.c_void_p
+    lib.fks_flat_pop.argtypes = [p, p]
+    lib.fks_flat_pop.restype = ctypes.c_int
+    lib.fks_flat_commit.argtypes = [p, ctypes.c_int, p]
+    lib.fks_flat_commit.restype = ctypes.c_int
+    lib.fks_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.fks_cuda_error_string.restype = ctypes.c_char_p
+    return lib

@@ -606,6 +606,8 @@ class GraphedChunk:
         self.max_steps = max_steps
         self.active_fn = lane_active if active_fn is None else active_fn
         self.steps = steps = graph_steps(step)
+        # a flat step of hand kernels (sim.flat_step), which drain counts
+        self.kernel_step = bool(getattr(step, "kernel_step", False))
         self.replays = 0
         # the state's card, whichever card is current (a mesh's shards
         # may sit on several)
@@ -752,11 +754,12 @@ def drain(jobs: Sequence[LaneJob]) -> None:
     parents: ``rounds``, and for graphed jobs ``replays``, the steps they
     ran (``steps``) and from CUDA events (``_ReplayClock``) their device
     seconds (``engine_device_s``) and the device gaps between rounds
-    (``round_gap_s``, summed over streams)."""
+    (``round_gap_s``, summed over streams), and of those steps the ones
+    the flat engine's kernel step ran (``kernel_steps``, where any did)."""
     live = list(jobs)
     timed = spans.is_open()
     clocks = {}
-    rounds = replays = steps = 0
+    rounds = replays = steps = kernel_steps = 0
     while live:
         rounds += 1
         flags = [job.active() for job in live]
@@ -767,6 +770,8 @@ def drain(jobs: Sequence[LaneJob]) -> None:
                 continue
             replays += 1
             steps += job.chunk.steps
+            if job.chunk.kernel_step:
+                kernel_steps += job.chunk.steps
             if not timed:
                 job.advance()
                 continue
@@ -781,6 +786,8 @@ def drain(jobs: Sequence[LaneJob]) -> None:
     spans.add(rounds=rounds)
     if replays:
         spans.add(replays=replays, steps=steps)
+    if kernel_steps:
+        spans.add(kernel_steps=kernel_steps)
     if clocks:
         spans.add(engine_device_s=sum(c.device_s for c in clocks.values()),
                   round_gap_s=sum(c.gap_s for c in clocks.values()))

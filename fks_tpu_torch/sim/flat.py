@@ -32,6 +32,14 @@ The step updates the queue tensors (``ev_time``, ``aux``, ``aux_gpus``,
 ``pod_ctime``, ``wait_hist``, ``fault_time``, the trace) in place instead
 of copying them per event.
 
+``build_step`` decides once, from its inputs (``kernel_step_blocker``),
+which step it builds: on CUDA, for packed ``aux`` and one workload with
+no faults, trace, audit, watchdog, prefilter or packed state, the kernel
+step (``sim.flat_step``: ``csrc/flat_step.cu``'s ``flat_pop`` and
+``flat_commit`` around the policy call, three launches a step, the
+whole state updated in place); everywhere else the PyTorch step
+(``build_torch_step``), which the kernels are held to bit for bit.
+
 Large clusters: ``SimConfig.node_prefilter_k`` scores only each event's
 first k feasible nodes (``engine.prefilter_candidates``); ``state_pack``
 stores the columns whose range provably fits 16 bits at the workload's
@@ -42,7 +50,7 @@ policies see int32 views and results are bit-identical;
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
@@ -211,10 +219,58 @@ def pod_table(p: PodArrays) -> torch.Tensor:
         dim=-1).to(torch.int32)
 
 
+def kernel_step_blocker(device: torch.device, workload: Workload,
+                        cfg: SimConfig, lane_trace=None,
+                        pod_rows=None) -> Optional[str]:
+    """What keeps ``build_step`` from building the kernel step
+    (``sim.flat_step``: ``csrc/flat_step.cu``'s two kernels around the
+    policy call) for a step on ``device`` with these inputs, or None where
+    it builds it. Decided once, from the inputs alone: the kernels take
+    CUDA, packed ``aux``, no faults, one workload with the step's own pod
+    and snapshot tables, no decision trace, audit or watchdog, the dense
+    node sweep, unpacked state columns and a float32 or float64 score
+    dtype (packed ``aux`` holds at most 30 GPUs a node, within the
+    kernels' 32)."""
+    c = workload.cluster
+    checks = (
+        ("not CUDA", device.type != "cuda"),
+        ("unpacked aux", not _packable(c.n_padded, c.g_padded)),
+        ("faults", workload.faults is not None),
+        ("lane_trace", lane_trace is not None),
+        ("pod_rows", pod_rows is not None),
+        ("decision_trace", cfg.decision_trace),
+        ("validate_invariants", cfg.validate_invariants),
+        ("watchdog", cfg.watchdog),
+        ("node_prefilter_k", cfg.resolve_prefilter_k(c.n_padded) > 0),
+        ("state_pack", cfg.state_pack),
+        ("score_dtype", cfg.score_dtype not in (torch.float32,
+                                                torch.float64)),
+    )
+    return next((why for why, hit in checks if hit), None)
+
+
 def build_step(workload: Workload, policy: PolicyFn, cfg: SimConfig,
                ktable, max_steps: int, lane_trace=None,
                pod_rows=None) -> Callable[[FlatState], FlatState]:
-    """One event in every lane. ``policy(PodView, NodeView) -> i32[L, N]``
+    """One event in every lane (``build_torch_step``'s arguments): the
+    kernel step (``sim.flat_step.build_kernel_step``) where
+    ``kernel_step_blocker`` finds nothing against it, else the PyTorch
+    step. The kernel step carries ``kernel_step = True``."""
+    check_config(cfg)
+    if kernel_step_blocker(workload.device, workload, cfg, lane_trace,
+                           pod_rows) is None:
+        from fks_tpu_torch.sim.flat_step import build_kernel_step
+
+        return build_kernel_step(workload, policy, cfg, ktable, max_steps)
+    return build_torch_step(workload, policy, cfg, ktable, max_steps,
+                            lane_trace, pod_rows)
+
+
+def build_torch_step(workload: Workload, policy: PolicyFn, cfg: SimConfig,
+                     ktable, max_steps: int, lane_trace=None,
+                     pod_rows=None) -> Callable[[FlatState], FlatState]:
+    """The PyTorch step: the CPU's, and the one the kernel step is held
+    to. One event in every lane. ``policy(PodView, NodeView) -> i32[L, N]``
     scores all lanes at once. With ``lane_trace`` the workload is a stack
     of traces and ``ktable`` their ``[T, K]`` snapshot tables.
     ``pod_rows`` is the step's ``pod_table`` buffer when the caller keeps

@@ -174,7 +174,7 @@ def fused_sim_plain(plan: _Plan, params: torch.Tensor):
     cfg = dataclasses.replace(plan.cfg, track_ctime=False,
                               score_dtype=torch.float32)
     ktable, max_steps = loop_tables(wl, cfg)
-    step = flat.build_step(
+    step = flat.build_torch_step(
         wl, lambda pod, nodes: parametric.score_plain(params, pod, nodes),
         cfg, ktable, max_steps)
     pop = params.shape[0]

@@ -359,3 +359,44 @@ def assert_result_matches(result, ref: Mapping[str, np.ndarray],
     for f in FLOAT_FIELDS:
         np.testing.assert_allclose(got[f], np.asarray(ref[f]), rtol=rtol,
                                    atol=atol, err_msg=f)
+
+
+def assert_same_tensors(a, b, where="") -> None:
+    """Two dataclasses of one type (states or results) hold equal tensors
+    field by field, bit for bit, and the same fields are None."""
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if isinstance(x, torch.Tensor):
+            assert x.dtype == y.dtype and torch.equal(x, y), (f.name, where)
+        elif x is None or y is None:
+            assert x is None and y is None, (f.name, where)
+
+
+def flat_lockstep(wl, cfg, policy, params, builds):
+    """The flat engine's population runner once per step builder of
+    ``builds`` (``sim.flat.build_torch_step``, the kernel step, ...), over
+    one population, advanced together (on CUDA a graph replay each): every
+    state is held bit for bit to the first runner's after every advance,
+    and the results too. Returns ``(advances, runners, results)``."""
+    from fks_tpu_torch.sim import engine, flat
+
+    state0 = flat.initial_state(wl, cfg)
+    runners = [engine.population_runner(wl, policy, cfg, build,
+                                        flat.finalize, flat.lane_active)
+               for build in builds]
+    jobs = [run.start(params, state0) for run in runners]
+    advances = 0
+    while True:
+        live = [job.read(job.active()) for job in jobs]
+        assert len(set(live)) == 1, (advances, live)
+        if not live[0]:
+            break
+        for job in jobs:
+            job.advance()
+        advances += 1
+        for job in jobs[1:]:
+            assert_same_tensors(jobs[0].state, job.state, advances)
+    results = [run.finish(job) for run, job in zip(runners, jobs)]
+    for res in results[1:]:
+        assert_same_tensors(results[0], res, "result")
+    return advances, runners, results

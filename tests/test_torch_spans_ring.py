@@ -245,7 +245,8 @@ class FakeGraphedJob:
     def __init__(self, replays, clock, steps=16, stream=None):
         self.left = replays
         self.clock = clock
-        self.chunk = type("Chunk", (), {"steps": steps})()
+        self.chunk = type("Chunk", (), {"steps": steps,
+                                        "kernel_step": False})()
         self.stream = FakeStream() if stream is None else stream
 
     def active(self):
