@@ -8,9 +8,10 @@ Run from the repository root on a machine with a CUDA card:
 Phases (any failure raises and exits non-zero):
 
 1. the card: ``nvidia-smi`` name and power limit, torch's device name;
-2. build ``fks_tpu_torch/csrc/fused_sim.cu`` and ``param_score.cu`` for
-   sm_90a (one ``nvcc`` each, started together) and print the ``-Xptxas
-   -v`` reports (registers, shared memory, spills); spills fail;
+2. build ``fks_tpu_torch/csrc/fused_sim.cu``, ``param_score.cu`` and
+   ``flat_step.cu`` for sm_90a (one ``nvcc`` each, started together) and
+   print the ``-Xptxas -v`` reports (registers, shared memory, spills);
+   spills fail (``flat_step.cu``'s are read in phase 4c);
 3. hold the kernel against its plain PyTorch version on the card, on the
    same inputs: integer outputs exact, float outputs within 2e-6
    (rtol and atol), on the roomy and contended workloads of fks_tpu's
@@ -39,9 +40,25 @@ Phases (any failure raises and exits non-zero):
    behind a spin), beside an empty kernel of the same launch (the floor),
    the plain version's time and the bound; and the auto-prefilter probe
    at N = 1,000: k = 0 for ``parametric.score``, k = 64 for
-   ``vm.score_static``; its launches are then counted from 0 around
-   phases 6, 8, 10 and 11 (each must launch it). ``param_score_phase``
-   runs alone too (it builds its kernel);
+   ``vm.score_static``; phases 6, 8, 10 and 11 must launch it.
+   ``param_score_phase`` runs alone too (it builds its kernel);
+4c. the flat engine's kernel step (``csrc/flat_step.cu``: ``flat_pop``
+   and ``flat_commit`` around the policy call) against the PyTorch step
+   at the benchmark's flat shape (32 lanes x 1,213 nodes x 8,152 pods):
+   the two advance in lockstep for 64 graph replays, every state tensor
+   equal after each; then the step's time from CUDA events beside the
+   PyTorch step's, each kernel's time inside the replays (profiler),
+   alone and beside its plain version and an empty launch inside a graph
+   (the floor), and the bytes each reads (its bound). Every hand
+   kernel's launches are then counted from 0 around each phase from 6
+   on; ``flat_pop`` and ``flat_commit`` launch equally often in each,
+   and phases 10 and 17 must launch them. ``flat_step_phase`` runs alone
+   too (it builds its kernel)::
+
+       python3 -c "import torch, chip_smoke as s; \\
+       s.flat_step_phase(torch.device('cuda'), \\
+       s.nvidia_smi('name,power.limit'))"
+
 5. (``ParametricEvolution`` on the fused engine, 3 generations at pop
    256: folded into phase 17 (a), 20 generations through the discover
    tool);
@@ -238,17 +255,10 @@ Phases (any failure raises and exits non-zero):
    ``tools.probe_floor`` parts A-B and ``tools.probe_ops`` at lanes 16 and
    256, 256 steps each: us per step printed, every number finite and
    positive;
-18. one ``{"kernels": [...]}`` line, then the last line
-   ``{"ok": true, "device": {...}}``.
-
-Run alone, not from ``main`` (it adds nothing to the script's time):
-``flat_step_phase`` builds ``csrc/flat_step.cu``, holds the flat
-engine's kernel step to the PyTorch step at the benchmark's flat shape
-(32 lanes x 1,213 nodes x 8,152 pods) and times ``flat_pop`` and
-``flat_commit`` there beside their plain versions and bounds:
-
-    python3 -c "import torch, chip_smoke as s; \
-    s.flat_step_phase(torch.device('cuda'), s.nvidia_smi('name,power.limit'))"
+18. one ``{"kernels": [...]}`` line (``fused_sim``, ``param_score``,
+   ``flat_pop``, ``flat_commit``: times, plain times, bounds and
+   launches by phase), then the last line ``{"ok": true, "device":
+   {...}}``.
 
 It imports nothing of JAX or of the fks_tpu package.
 """
@@ -271,7 +281,9 @@ TOL = 2e-6
 POP = 256
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
 F32_OPS_PER_S = 67e12  # H100 SXM float32 rate outside the tensor cores
-KERNELS = ("fused_sim", "param_score")
+KERNELS = ("fused_sim", "param_score", "flat_step")  # csrc/<name>.cu
+#: the hand kernels whose launches every phase counts
+LAUNCHED = ("fused_sim", "param_score", "flat_pop", "flat_commit")
 SMEM_BYTES_PER_CLOCK_PER_SM = 128
 
 
@@ -284,6 +296,26 @@ def nvidia_smi(query: str) -> str:
         ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0].strip()
+
+
+def launch_counts() -> dict:
+    """Each hand kernel's launch count (its wrapper's ``launches``)."""
+    from fks_tpu_torch.models import parametric
+    from fks_tpu_torch.sim import flat_step, fused
+
+    return {"fused_sim": fused.fused_sim.launches,
+            "param_score": parametric.score.launches,
+            "flat_pop": flat_step.flat_pop.launches,
+            "flat_commit": flat_step.flat_commit.launches}
+
+
+def zero_launches() -> None:
+    """Sets every hand kernel's launch count to 0."""
+    from fks_tpu_torch.models import parametric
+    from fks_tpu_torch.sim import flat_step, fused
+
+    fused.fused_sim.launches = parametric.score.launches = 0
+    flat_step.flat_pop.launches = flat_step.flat_commit.launches = 0
 
 
 def compare_raw(name, got, want):
@@ -1490,6 +1522,37 @@ def flat_step_phase(dev, card) -> dict:
     return out
 
 
+def flat_step_entry(name: str, fs: dict, by_phase: dict) -> dict:
+    """The ``kernels`` line's entry of ``flat_pop`` or ``flat_commit``:
+    phase 4c's times, plain time, bound and floor (``fs``), and the main
+    path's launches by phase."""
+    launches = {k: n[name] for k, n in by_phase.items()}
+    return {
+        "name": name, "route": "cuda",
+        "source": "fks_tpu_torch/csrc/flat_step.cu",
+        "replaces": "fks_tpu/sim/flat.py:268",
+        "launches": sum(launches.values()), "max_abs_err": 0.0,
+        "ms": fs["kernel_us"][f"{name}_kernel"] / 1e3,
+        "alone_ms": fs["alone_us"][name] / 1e3,
+        "plain_ms": fs["alone_us"][name.replace("flat_", "") + "_plain"]
+        / 1e3,
+        "bound_ms": fs["bound_us"][name] / 1e3,
+        "floor_ms": fs["alone_us"]["empty"] / 1e3,
+        "bound_by": "bytes", "library_ms": None,
+        "bound_note": "the bytes the kernel reads once over the HBM rate "
+                      "(an L2-resident state reads faster: a floor) at "
+                      "the flat cell's shape, 32 lanes x 1,213 nodes x "
+                      "8,152 slots; an empty launch inside a graph "
+                      "(floor_ms) is the practical floor. ms is the time "
+                      "inside the step's replays (profiler), alone_ms "
+                      "the marginal time in a 32-call graph. fks_tpu "
+                      "runs this half of the step as plain XLA",
+        "launches_by_phase": launches, "check": "every state tensor equal "
+        "to the PyTorch step's", "step_us": fs["step_us"],
+        "card": fs["card"],
+    }
+
+
 def serve_phase(dev, card) -> dict:
     """Phase 12 (module docstring): champion serving on the card — the
     selftest, latencies and captures per bucket, the hot swap, the HTTP
@@ -2415,19 +2478,16 @@ def cli_phase(dev, card, evolve_run_dir) -> dict:
     from fks_tpu_torch.models import parametric
     from fks_tpu_torch.ops import _ext
     from fks_tpu_torch.parallel import make_population_eval
-    from fks_tpu_torch.sim import fused
 
     _ext.fused_sim_library()
     _ext.param_score_library()
+    _ext.flat_step_library()
     t_phase = time.perf_counter()
     tmp = tempfile.TemporaryDirectory()
     work = Path(tmp.name)
-    out = {"seconds": {}, "launches": {"fused_sim": 0, "param_score": 0},
+    out = {"seconds": {}, "launches": dict.fromkeys(LAUNCHED, 0),
            "launches_by_command": {}}
-
-    def counts():
-        return {"fused_sim": fused.fused_sim.launches,
-                "param_score": parametric.score.launches}
+    counts = launch_counts
 
     def run(tag, argv, want_rc=0):
         """``cli.main(argv)`` timed, its kernel launches counted (read
@@ -2728,26 +2788,22 @@ def readback_phase(dev, card, evolve_run_dir) -> dict:
     from fks_tpu_torch import cli
     from fks_tpu_torch.data import TraceParser
     from fks_tpu_torch.data.synthetic import synthetic_workload
-    from fks_tpu_torch.models import parametric
     from fks_tpu_torch.obs import NULL
     from fks_tpu_torch.obs.history import RunHistory
     from fks_tpu_torch.obs.layout import explore_layouts
     from fks_tpu_torch.ops import _ext
     from fks_tpu_torch.scenarios import get_suite
-    from fks_tpu_torch.sim import fused
     from fks_tpu_torch.tools import measure_tiers, profile_step
 
     _ext.fused_sim_library()
     _ext.param_score_library()
+    _ext.flat_step_library()
     t_phase = time.perf_counter()
     tmp = tempfile.TemporaryDirectory()
     work = Path(tmp.name)
-    out = {"seconds": {}, "launches": {"fused_sim": 0, "param_score": 0},
+    out = {"seconds": {}, "launches": dict.fromkeys(LAUNCHED, 0),
            "launches_by_case": {}}
-
-    def counts():
-        return {"fused_sim": fused.fused_sim.launches,
-                "param_score": parametric.score.launches}
+    counts = launch_counts
 
     @contextlib.contextmanager
     def case(tag):
@@ -2930,35 +2986,30 @@ def entry_points_phase(dev, card) -> dict:
     import torch
 
     from fks_tpu_torch import entry
-    from fks_tpu_torch.models import parametric
     from fks_tpu_torch.ops import _ext
-    from fks_tpu_torch.sim import fused
     from fks_tpu_torch.tools import (
         discover, probe_floor, probe_ops, run_full_suite,
     )
 
     _ext.fused_sim_library()
     _ext.param_score_library()
+    _ext.flat_step_library()
     t_phase = time.perf_counter()
     tmp = tempfile.TemporaryDirectory()
     work = Path(tmp.name)
     out = {"seconds": {}, "launches_by_case": {}}
-
-    def counts():
-        return {"fused_sim": fused.fused_sim.launches,
-                "param_score": parametric.score.launches}
 
     @contextlib.contextmanager
     def case(tag):
         """Seconds and kernel launches of one case (the counts set to 0
         just before it and read just after)."""
         torch.cuda.synchronize()
-        fused.fused_sim.launches = parametric.score.launches = 0
+        zero_launches()
         t0 = time.perf_counter()
         yield
         torch.cuda.synchronize()
         out["seconds"][tag] = time.perf_counter() - t0
-        out["launches_by_case"][tag] = counts()
+        out["launches_by_case"][tag] = launch_counts()
 
     def run_discover(tag, argv):
         """``discover.main(argv)`` into ``work/tag``: (record, saved file,
@@ -3128,6 +3179,7 @@ def main() -> int:
         built = dict(zip(KERNELS, pool.map(_ext.build, KERNELS)))
     _ext.fused_sim_library()
     _ext.param_score_library()
+    _ext.flat_step_library()
     for name, so in built.items():
         log(f"[build] {so.relative_to(ROOT)}")
     log(f"[build] {len(KERNELS)} kernels in {time.perf_counter() - t0:.2f} "
@@ -3246,23 +3298,25 @@ def main() -> int:
     # ---- 4b. the parametric score kernel against its plain version
     ps = param_score_phase(dev, card)
 
+    # ---- 4c. the flat engine's kernel step against the PyTorch step
+    fs = flat_step_phase(dev, card)
+
     # (phase 5, ParametricEvolution on the fused engine, is phase 17 (a))
 
-    # the parametric score kernel's launches, counted from 0 around each
-    # path that runs the parametric policy on the exact or flat engine
-    ps_launches = {}
+    # every hand kernel's launches, counted from 0 around each phase
+    by_phase = {}
 
     def counted(phase, fn, *args):
-        parametric.score.launches = 0
+        zero_launches()
         out = fn(*args)
         torch.cuda.synchronize()
-        ps_launches[phase] = parametric.score.launches
-        parametric.score.launches = 0
+        by_phase[phase] = launch_counts()
+        zero_launches()
         return out
 
     # ---- 6. the exact heap engine
     counted("6", exact_phase, dev, wl, params, card)
-    if ps_launches["6"] == 0:
+    if by_phase["6"]["param_score"] == 0:
         raise AssertionError("the exact engine's parametric population "
                              "never launched the param_score kernel")
 
@@ -3273,7 +3327,7 @@ def main() -> int:
     counted("8", scenario_phase, dev, wl, params, card)
 
     # ---- 9. code candidates
-    summary = {"code": code_phase(dev, card)}
+    summary = {"code": counted("9", code_phase, dev, card)}
 
     # ---- 10. 1,000 nodes
     summary["scale"], probe_inputs = counted("10", scale_phase, dev, card)
@@ -3281,75 +3335,65 @@ def main() -> int:
     # ---- 11. the evolve loop
     summary["evolve"] = counted("11", evolve_phase, dev, card, probe_inputs)
     for phase in ("8", "10", "11"):
-        if ps_launches[phase] == 0:
+        if by_phase[phase]["param_score"] == 0:
             raise AssertionError(f"phase {phase} never launched param_score")
-    log(f"[param_score] launches by phase: {ps_launches}")
+    # phase 10's dense flat runs (parametric and VM) take the kernel step
+    if by_phase["10"]["flat_pop"] == 0:
+        raise AssertionError("phase 10 never launched flat_pop")
 
     # ---- 12. serving
-    fused.fused_sim.launches = parametric.score.launches = 0
-    summary["serve"] = serve_phase(dev, card)
-    serve_launches = {"fused_sim": fused.fused_sim.launches,
-                      "param_score": parametric.score.launches}
-    log(f"[serve] kernel launches in phase 12: {serve_launches} (the "
-        f"champion is a VM program: the serve path runs no hand kernel)")
+    summary["serve"] = counted("12", serve_phase, dev, card)
+    log(f"[serve] kernel launches in phase 12: {by_phase['12']} (the "
+        f"champion is a VM program and the serve graph passes its pod "
+        f"rows: the serve path runs no hand kernel)")
 
     # ---- 13. the mesh and the portfolio
-    fused.fused_sim.launches = parametric.score.launches = 0
-    summary["mesh"] = mesh_phase(dev, card, wl, params, res)
-    mesh_launches = {"fused_sim": fused.fused_sim.launches,
-                     "param_score": parametric.score.launches}
-    if not all(mesh_launches.values()):
+    summary["mesh"] = counted("13", mesh_phase, dev, card, wl, params, res)
+    if not all(by_phase["13"][k] for k in ("fused_sim", "param_score")):
         raise AssertionError(f"phase 13 left a kernel unlaunched: "
-                             f"{mesh_launches}")
-    ps_launches["13"] = mesh_launches["param_score"]
-    log(f"[mesh] kernel launches in phase 13: {mesh_launches}")
+                             f"{by_phase['13']}")
 
     # ---- 14. the control plane
-    fused.fused_sim.launches = parametric.score.launches = 0
-    summary["control"] = control_plane_phase(dev, card)
-    control_launches = {"fused_sim": fused.fused_sim.launches,
-                        "param_score": parametric.score.launches}
-    ps_launches["14"] = control_launches["param_score"]
-    log(f"[control] kernel launches in phase 14: {control_launches} (the "
+    summary["control"] = counted("14", control_plane_phase, dev, card)
+    log(f"[control] kernel launches in phase 14: {by_phase['14']} (the "
         f"control plane serves code champions: VM programs and the "
-        f"transpiled tier, no hand kernel)")
+        f"transpiled tier)")
 
     # ---- 15. the command line
     import tempfile
     kept = tempfile.TemporaryDirectory()
     evolve_run_dir = Path(kept.name) / "evolve_run"
-    fused.fused_sim.launches = parametric.score.launches = 0
     summary["cli"] = cli_phase(dev, card, evolve_run_dir)
-    cli_launches = summary["cli"]["launches"]
-    if not all(cli_launches.values()):
+    by_phase["15"] = summary["cli"]["launches"]  # the commands' own
+    if not all(by_phase["15"][k] for k in ("fused_sim", "param_score")):
         raise AssertionError(f"phase 15 left a kernel unlaunched: "
-                             f"{cli_launches}")
-    ps_launches["15"] = cli_launches["param_score"]
-    log(f"[cli] kernel launches in phase 15 (the commands' own, by "
-        f"command {summary['cli']['launches_by_command']}): "
-        f"{cli_launches}")
+                             f"{by_phase['15']}")
+    log(f"[cli] launches by command "
+        f"{summary['cli']['launches_by_command']}")
 
     # ---- 16. reading back and tooling
-    fused.fused_sim.launches = parametric.score.launches = 0
     summary["readback"] = readback_phase(dev, card, evolve_run_dir)
+    by_phase["16"] = summary["readback"]["launches"]  # the cases' own
     kept.cleanup()
-    rb_launches = summary["readback"]["launches"]
-    if rb_launches["param_score"] == 0:
+    if by_phase["16"]["param_score"] == 0:
         raise AssertionError(f"phase 16 never launched param_score: "
-                             f"{rb_launches}")
-    ps_launches["16"] = rb_launches["param_score"]
-    log(f"[readback] kernel launches in phase 16: {rb_launches}")
+                             f"{by_phase['16']}")
 
-    # ---- 17. the last entry points
+    # ---- 17. the last entry points (counted from 0 around each case)
     summary["entry"] = entry_points_phase(dev, card)
-    entry_launches = {k: sum(c[k] for c in
+    by_phase["17"] = {k: sum(c[k] for c in
                              summary["entry"]["launches_by_case"].values())
-                      for k in KERNELS}
-    if not all(entry_launches.values()):
+                      for k in LAUNCHED}
+    if not all(by_phase["17"].values()):
         raise AssertionError(f"phase 17 left a kernel unlaunched: "
-                             f"{entry_launches}")
-    ps_launches["17"] = entry_launches["param_score"]
-    log(f"[entry] kernel launches in phase 17: {entry_launches}")
+                             f"{by_phase['17']}")
+    # every kernel step launches both halves once
+    for phase, n in by_phase.items():
+        if n["flat_pop"] != n["flat_commit"]:
+            raise AssertionError(f"phase {phase}: flat_pop launched "
+                                 f"{n['flat_pop']} times, flat_commit "
+                                 f"{n['flat_commit']}")
+    log(f"[launches] by phase: {by_phase}")
 
     # ---- summary
     log(f"[summary] {json.dumps(summary)}")
@@ -3375,12 +3419,9 @@ def main() -> int:
         "mean_lane_steps": mean_lane_steps,
         "ns_per_critical_step": ns_per_critical_step,
         "pop": POP, "check": "ok",
-        "launches_by_phase": {"4": launches,
-                              "13": mesh_launches["fused_sim"],
-                              "14": control_launches["fused_sim"],
-                              "15": cli_launches["fused_sim"],
-                              "16": rb_launches["fused_sim"],
-                              "17": entry_launches["fused_sim"]},
+        "launches_by_phase": dict(
+            {"4": launches},
+            **{k: n["fused_sim"] for k, n in by_phase.items()}),
         "mesh_launches_per_eval": {
             "1_shard": summary["mesh"]["launches_per_eval_1"],
             "4_logical_shards": summary["mesh"]["launches_per_eval_4"]},
@@ -3389,7 +3430,8 @@ def main() -> int:
         "name": "param_score", "route": "cuda",
         "source": "fks_tpu_torch/csrc/param_score.cu",
         "replaces": "fks_tpu/models/parametric.py:103",
-        "launches": ps_launches["6"], "max_abs_err": ps["max_abs_err"],
+        "launches": by_phase["6"]["param_score"],
+        "max_abs_err": ps["max_abs_err"],
         "ms": ps["times"]["L256_N16"]["ms"],
         "marginal_ms": ps["times"]["L256_N16"]["marginal_ms"],
         "floor_ms": ps["times"]["L256_N16"]["floor_ms"],
@@ -3405,10 +3447,13 @@ def main() -> int:
                       "grid (floor_ms) is the launch floor. fks_tpu runs "
                       "parametric.score as plain XLA: no TPU kernel, no "
                       "library call",
-        "launches_by_phase": ps_launches, "times": ps["times"],
+        "launches_by_phase": {k: n["param_score"]
+                              for k, n in by_phase.items()},
+        "times": ps["times"],
         "probe": ps["probe"], "scores_checked": ps["checked"],
         "card": card,
-    }]}), flush=True)
+    }] + [flat_step_entry(name, fs, by_phase)
+          for name in ("flat_pop", "flat_commit")]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -219,13 +219,12 @@ def pod_table(p: PodArrays) -> torch.Tensor:
         dim=-1).to(torch.int32)
 
 
-def kernel_step_blocker(device: torch.device, workload: Workload,
-                        cfg: SimConfig, lane_trace=None,
-                        pod_rows=None) -> Optional[str]:
+def kernel_step_blocker(workload: Workload, cfg: SimConfig,
+                        lane_trace=None, pod_rows=None) -> Optional[str]:
     """What keeps ``build_step`` from building the kernel step
     (``sim.flat_step``: ``csrc/flat_step.cu``'s two kernels around the
-    policy call) for a step on ``device`` with these inputs, or None where
-    it builds it. Decided once, from the inputs alone: the kernels take
+    policy call) for a step over ``workload`` with these inputs, or None
+    where it builds it. Decided once, from the inputs alone: the kernels take
     CUDA, packed ``aux``, no faults, one workload with the step's own pod
     and snapshot tables, no decision trace, audit or watchdog, the dense
     node sweep, unpacked state columns and a float32 or float64 score
@@ -233,7 +232,7 @@ def kernel_step_blocker(device: torch.device, workload: Workload,
     kernels' 32)."""
     c = workload.cluster
     checks = (
-        ("not CUDA", device.type != "cuda"),
+        ("not CUDA", workload.device.type != "cuda"),
         ("unpacked aux", not _packable(c.n_padded, c.g_padded)),
         ("faults", workload.faults is not None),
         ("lane_trace", lane_trace is not None),
@@ -257,8 +256,7 @@ def build_step(workload: Workload, policy: PolicyFn, cfg: SimConfig,
     ``kernel_step_blocker`` finds nothing against it, else the PyTorch
     step. The kernel step carries ``kernel_step = True``."""
     check_config(cfg)
-    if kernel_step_blocker(workload.device, workload, cfg, lane_trace,
-                           pod_rows) is None:
+    if kernel_step_blocker(workload, cfg, lane_trace, pod_rows) is None:
         from fks_tpu_torch.sim.flat_step import build_kernel_step
 
         return build_kernel_step(workload, policy, cfg, ktable, max_steps)

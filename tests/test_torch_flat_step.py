@@ -14,6 +14,7 @@ import dataclasses
 import pytest
 import torch
 
+from fks_tpu_torch.data.entities import Workload
 from fks_tpu_torch.data.synthetic import BucketShape, pad_workload, \
     synthetic_workload
 from fks_tpu_torch.models import parametric, zoo
@@ -26,7 +27,6 @@ from fks_tpu_torch.testing import (
     tied_workload,
 )
 
-CUDA = torch.device("cuda")
 #: the benchmark's flat configuration (``tools.discover``'s)
 CELL_CFG = SimConfig(track_ctime=False)
 
@@ -36,14 +36,26 @@ def wl():
     return synthetic_workload(6, 80, seed=1)
 
 
-def test_the_cell_configuration_takes_the_kernel_step_on_cuda(wl):
-    assert flat.kernel_step_blocker(CUDA, wl, CELL_CFG) is None
-    assert flat.kernel_step_blocker(CUDA, wl, SimConfig()) is None
+def report_device(monkeypatch, device: torch.device) -> None:
+    """Every workload reports ``device`` (its tensors stay on the CPU):
+    the engagement rule's checks past the device, on a machine with no
+    card."""
+    monkeypatch.setattr(Workload, "device", property(lambda self: device))
+
+
+@pytest.fixture
+def on_cuda(monkeypatch):
+    report_device(monkeypatch, torch.device("cuda"))
+
+
+def test_the_cell_configuration_takes_the_kernel_step_on_cuda(wl, on_cuda):
+    assert flat.kernel_step_blocker(wl, CELL_CFG) is None
+    assert flat.kernel_step_blocker(wl, SimConfig()) is None
     for cfg in (SimConfig(gpu_allocator="first_fit"),
                 SimConfig(score_dtype=torch.float64),
                 SimConfig(max_steps=100),
                 SimConfig(node_prefilter_k=wl.cluster.n_padded)):
-        assert flat.kernel_step_blocker(CUDA, wl, cfg) is None
+        assert flat.kernel_step_blocker(wl, cfg) is None
 
 
 @pytest.mark.parametrize("why, kw", [
@@ -57,21 +69,28 @@ def test_the_cell_configuration_takes_the_kernel_step_on_cuda(wl):
     ("pod_rows", dict(pod_rows=torch.zeros((80, 5), dtype=torch.int32))),
     ("not CUDA", dict(device=torch.device("cpu"))),
 ])
-def test_each_fallback_condition_keeps_the_pytorch_step(wl, why, kw):
-    kw = dict(dict(device=CUDA, cfg=CELL_CFG), **kw)
-    assert flat.kernel_step_blocker(kw.pop("device"), wl, kw.pop("cfg"),
-                                    **kw) == why
+def test_each_fallback_condition_keeps_the_pytorch_step(wl, monkeypatch,
+                                                        why, kw):
+    kw = dict(dict(device=torch.device("cuda"), cfg=CELL_CFG), **kw)
+    report_device(monkeypatch, kw.pop("device"))
+    assert flat.kernel_step_blocker(wl, kw.pop("cfg"), **kw) == why
 
 
-def test_faults_and_unpacked_aux_keep_the_pytorch_step(wl):
+def test_a_cpu_workload_keeps_the_pytorch_step(wl):
+    assert wl.device.type == "cpu"
+    assert flat.kernel_step_blocker(wl, CELL_CFG) == "not CUDA"
+
+
+def test_faults_and_unpacked_aux_keep_the_pytorch_step(wl, monkeypatch):
     suite = get_suite("smoke3", synthetic_workload(4, 24, seed=3))
     faulted = [w for w in suite.workloads if w.faults is not None]
     assert faulted
-    assert flat.kernel_step_blocker(CUDA, faulted[0], CELL_CFG) == "faults"
     wide = pad_workload(wl, BucketShape(n=wl.cluster.n_padded, g=32,
                                         p=wl.pods.p_padded))
     assert not flat._packable(wide.cluster.n_padded, wide.cluster.g_padded)
-    assert flat.kernel_step_blocker(CUDA, wide, CELL_CFG) == "unpacked aux"
+    report_device(monkeypatch, torch.device("cuda"))
+    assert flat.kernel_step_blocker(faulted[0], CELL_CFG) == "faults"
+    assert flat.kernel_step_blocker(wide, CELL_CFG) == "unpacked aux"
 
 
 def test_build_step_builds_the_pytorch_step_on_the_cpu(wl):

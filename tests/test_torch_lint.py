@@ -134,6 +134,43 @@ def test_graph_steps_mark_and_calls_make_a_body_captured():
         "_helper", "_deeper", "_middle", "score"]
 
 
+def test_named_step_builders_make_their_inner_functions_captured():
+    src = step_body("n = s.size.item()\n")
+    for builder, want in (("build_kernel_step", ["FKS103"]),
+                          ("build_torch_step", ["FKS103"]),
+                          ("build_stepper", []), ("rebuild_step", [])):
+        assert codes(src.replace("def build_step(",
+                                 f"def {builder}(")) == want, builder
+
+
+HOST_HELPER = """
+import torch
+
+def _plain(x):
+    return x.sum().item()
+
+def build_foo_step(workload):
+    def step(s):
+        if s.size.device.type == "cpu":
+            _plain(s.size)
+{device_call}        return s
+    return step
+"""
+
+
+@pytest.mark.parametrize("device_call, want", [
+    ("", []),
+    ("        _plain(s.data)\n", [("FKS103", 5)]),
+], ids=["host-branch-only", "also-on-device"])
+def test_a_helper_called_on_the_host_branch_alone_is_not_captured(
+        device_call, want):
+    src = HOST_HELPER.format(device_call=device_call)
+    found = lint.lint_source("helper.py", src)
+    assert [(f.code, f.line) for f in found] == want
+    names = {f.name for f in lint.captured_bodies(ast.parse(src))}
+    assert ("_plain" in names) == bool(want)
+
+
 def test_nested_defs_report_once():
     src = step_body("def inner(x):\n    return x.item()\ny = inner(s)\n")
     found = lint.lint_source("nested.py", src)
@@ -185,6 +222,7 @@ def test_every_captured_step_is_covered():
     pkg = ROOT / "fks_tpu_torch"
     want = {"sim/engine.py": {"step", "lane_active", "_node_view"},
             "sim/flat.py": {"step", "lane_active"},
+            "sim/flat_step.py": {"step", "flat_pop", "flat_commit"},
             "funsearch/vm.py": {"score", "score_static", "_execute",
                                 "_inputs", "_lanes"}}
     for rel, names in want.items():
