@@ -695,6 +695,18 @@ class LaneJob:
         with self.scope():
             return bool(flag)
 
+    def lane_steps(self) -> int:
+        """The sum of the lanes' ``steps``, read on the job's stream: once
+        the job is done, the read waits on none of its work."""
+        with self.scope():
+            return int(self.state.steps.sum(dtype=torch.int64))
+
+    def lane_slots(self) -> int:
+        """The lane-steps its advances ran, active lanes or not: every
+        advance steps each of the job's lanes (a shape, read on the host)."""
+        per = self.chunk.steps if self.chunk is not None else SYNC_EVERY
+        return self.advances * per * self.state.steps.numel()
+
     def advance(self) -> None:
         if self.advances >= self.budget:
             raise RuntimeError(
@@ -755,7 +767,11 @@ def drain(jobs: Sequence[LaneJob]) -> None:
     ran (``steps``) and from CUDA events (``_ReplayClock``) their device
     seconds (``engine_device_s``) and the device gaps between rounds
     (``round_gap_s``, summed over streams), and of those steps the ones
-    the flat engine's kernel step ran (``kernel_steps``, where any did)."""
+    the flat engine's kernel step ran (``kernel_steps``, where any did).
+    Once every job is done it reads, per job, the sum of its lanes'
+    ``steps`` (``lane_steps``: the lane-steps that did work), a read that
+    waits on no replay, beside the lane-steps its advances ran
+    (``lane_slots``)."""
     live = list(jobs)
     timed = spans.is_open()
     clocks = {}
@@ -783,7 +799,9 @@ def drain(jobs: Sequence[LaneJob]) -> None:
             clock.turn()
     if not timed:
         return
-    spans.add(rounds=rounds)
+    spans.add(rounds=rounds,
+              lane_steps=sum(job.lane_steps() for job in jobs),
+              lane_slots=sum(job.lane_slots() for job in jobs))
     if replays:
         spans.add(replays=replays, steps=steps)
     if kernel_steps:

@@ -214,6 +214,12 @@ class _Job:
     def advance(self):
         self.left -= 1
 
+    def lane_steps(self):
+        return 0
+
+    def lane_slots(self):
+        return 0
+
 
 def test_drain_counts_the_kernel_steps(monkeypatch):
     spans.ring().clear()

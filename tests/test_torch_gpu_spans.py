@@ -10,8 +10,9 @@ the GPU machine with
 A generation of ``ParametricEvolution`` synchronises with the host at
 its seed draw, at each round's flag read of the drain loop (flat and
 exact engines) and at its two read-backs (best and mean score); the
-instrumentation adds none (``torch.cuda.set_sync_debug_mode`` counts
-them).
+instrumentation adds none inside the drain's rounds, and one read of the
+lanes' steps (``lane_steps``) once its job is done
+(``torch.cuda.set_sync_debug_mode`` counts them).
 """
 import warnings
 
@@ -69,6 +70,8 @@ def test_engine_event_times_fit_inside_their_generation(cuda, engine):
             assert c["replays"] == c["rounds"] - 1 > 0
             assert c["round_gap_s"] > 0
             assert c["steps"] == 16 * c["replays"]
+            assert 0 < c["lane_steps"] <= c["lane_slots"]
+            assert c["lane_slots"] == pe.params.shape[0] * c["steps"]
             assert (c["engine_device_s"] + c["round_gap_s"]
                     <= g.seconds)
     assert fused_sim.launches - launches == (3 if engine == "fused" else 0)
@@ -97,4 +100,6 @@ def test_an_instrumented_generation_adds_no_synchronisation(cuda, engine):
     count = _syncs(lambda: pe.run(1))
     (g,) = [r for r in spans.ring() if r.label == "gen"]
     rounds = g.counters.get("rounds", 0)
-    assert count == 1 + rounds + 2 + OTHER_SYNCS[engine], (count, rounds)
+    lane_reads = 1 if rounds else 0  # the drain's one job, once it is done
+    assert count == 1 + rounds + lane_reads + 2 + OTHER_SYNCS[engine], (
+        count, rounds)

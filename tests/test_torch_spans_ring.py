@@ -240,10 +240,11 @@ def test_fused_launch_events_are_read_at_settle_only(ring, fake_events):
 class FakeGraphedJob:
     """A graphed ``LaneJob`` stand-in: each replay takes 5 ms of device
     time; each flag read completes the stream and wakes the host 0.25
-    ms later."""
+    ms later. Its two lanes are active in every step it runs."""
 
     def __init__(self, replays, clock, steps=16, stream=None):
         self.left = replays
+        self.ran = 0
         self.clock = clock
         self.chunk = type("Chunk", (), {"steps": steps,
                                         "kernel_step": False})()
@@ -260,7 +261,14 @@ class FakeGraphedJob:
     def advance(self):
         FakeEvent.log.append(("advance",))
         self.left -= 1
+        self.ran += self.chunk.steps
         self.clock["now"] += 5.0
+
+    def lane_steps(self):
+        return 2 * self.ran
+
+    def lane_slots(self):
+        return 4 * self.ran
 
 
 def test_drain_counts_replays_gaps_and_device_time(ring, fake_events):
@@ -268,7 +276,8 @@ def test_drain_counts_replays_gaps_and_device_time(ring, fake_events):
     with spans.span("drain"):
         engine.drain([job])
     c = list(ring)[-1].counters
-    assert c == {"rounds": 5, "replays": 4, "steps": 64,
+    assert c == {"rounds": 5, "replays": 4, "steps": 64, "lane_steps": 128,
+                 "lane_slots": 256,
                  "engine_device_s": pytest.approx(4 * 5e-3),
                  "round_gap_s": pytest.approx(3 * 0.25e-3)}
     # each round's replays are read after the next round's are queued,
@@ -326,8 +335,9 @@ def test_one_gen_record_per_generation_with_its_stages(ring, eng,
                          "gen/eval/finish"}
     else:
         assert evals == {"gen/eval/launch"}
-    for g in gens:
-        assert set(g.counters) == {"rounds"}  # no events on the CPU
+    for g in gens:  # no events on the CPU
+        assert set(g.counters) == {"rounds", "lane_steps", "lane_slots"}
+        assert 0 < g.counters["lane_steps"] <= g.counters["lane_slots"]
     # one eager lane job a generation: the last round reads its flag off
     assert sum(g.counters["rounds"] for g in gens) == len(advances) + 3
     for a, b in zip(gens, gens[1:]):
