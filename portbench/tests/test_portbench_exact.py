@@ -1,16 +1,15 @@
 """The exact cell (``openb16-exact-pop256``, ``loops.search_exact``) on the
-CPU at a small size. ``BENCHMARK.json`` does not list the cell yet: its
-entries wait in ``pending/openb16-exact-pop256.json``, and these tests
-run it from a checkout whose ``BENCHMARK.json`` adds them, a form the
-schema tests accept. A sound run is correct, every fault that
-``test_portbench_faults`` plants comes out not correct here too, as do a
-retry time changed where it is produced, a lane marked aborted that the
-reference runs to its end, and the reference one precision below the
-configuration's in the program's place; the loop refuses a configuration
-that states other semantics; and the cell's metric readers read nothing
-outside their engine or without their counters."""
+CPU at a small size. ``BENCHMARK.json`` lists the cell, its
+configuration and its three metrics at the ends of their lists, and the
+cell in ``cand_evals_per_s.flat``'s ``workloads``. A sound run is
+correct, every fault that ``test_portbench_faults`` plants comes out not
+correct here too, as do a retry time changed where it is produced, a
+lane marked aborted that the reference runs to its end, and the
+reference one precision below the configuration's in the program's
+place; the loop refuses a configuration that states other semantics;
+and the cell's metric readers read nothing outside their engine or
+without their counters."""
 import dataclasses
-import json
 from pathlib import Path
 
 import numpy as np
@@ -25,7 +24,7 @@ from portbench.tests import test_portbench_schema as schema
 
 ROOT = Path(__file__).resolve().parents[2]
 CELL = "openb16-exact-pop256"
-PENDING = harness.BENCH / "pending" / f"{CELL}.json"
+METRICS = ["exact.step_us", "exact.step_us.window", "exact.lane_occupancy"]
 #: the first 300 pods make three of the fixed initial population's eight
 #: lanes retry; that population is the window's first generation, and
 #: every lane is replayed
@@ -34,27 +33,10 @@ RETRYING = {"max_pods": 300, "mix": dict(faults.SMALL["mix"],
                                          check_parts=8)}
 
 
-def with_cell() -> dict:
-    """``BENCHMARK.json`` with the pending entries added at the ends of
-    their lists."""
-    bench = harness.load_benchmark(ROOT)
-    add = json.loads(PENDING.read_text())
-    for group in ("configs", "workloads", "per_layer"):
-        bench[group] = bench[group] + add[group]
-    for m in bench["end_to_end"]:
-        m["workloads"] = m.get("workloads", []) + \
-            add["append_to_workloads"].get(m["name"], [])
-        if not m["workloads"]:
-            del m["workloads"]
-    return bench
-
-
 @pytest.fixture(scope="module")
-def root(tmp_path_factory) -> Path:
-    """A checkout whose ``BENCHMARK.json`` lists the cell."""
-    path = tmp_path_factory.mktemp("checkout")
-    (path / "BENCHMARK.json").write_text(json.dumps(with_cell()))
-    return path
+def root() -> Path:
+    """The checkout, whose ``BENCHMARK.json`` lists the cell."""
+    return ROOT
 
 
 @pytest.mark.parametrize("form", [schema.test_top_level_keys,
@@ -62,19 +44,29 @@ def root(tmp_path_factory) -> Path:
                                   schema.test_every_cell_reports_enough],
                          ids=lambda f: f.__name__)
 def test_the_pending_entries_keep_the_benchmarks_form(form):
-    form(with_cell())
+    """The benchmark with the cell's entries keeps its form, and they sit
+    at the ends of their lists."""
+    bench = harness.load_benchmark(ROOT)
+    form(bench)
+    assert bench["configs"][-1]["name"] == "openb16-exact"
+    assert bench["workloads"][-1]["name"] == CELL
+    assert [m["name"] for m in bench["per_layer"][-3:]] == METRICS
+    flat = [m for m in bench["end_to_end"]
+            if m["name"] == "cand_evals_per_s.flat"]
+    assert flat[0]["workloads"][-1] == CELL
 
 
 def test_the_pending_cell_resolves_to_its_files():
-    bench = with_cell()
+    bench = harness.load_benchmark(ROOT)
     cell = harness.find_cell(bench, CELL)
+    assert (cell["config"], cell["chips"]) == ("openb16-exact", 1)
     mix = harness.load_json("traffic", cell["traffic"])
     assert harness.loop(mix) is search_exact
     assert mix["warmup_capture"] and mix["warmup_generations"] == 0
     assert [m["name"] for m in harness.metrics_of(bench, CELL, True)] == \
-        ["exact.step_us", "exact.step_us.window", "exact.lane_occupancy"]
-    assert "openb16-exact-pop256" not in json.dumps(
-        harness.load_benchmark(ROOT))
+        METRICS
+    assert [m["name"] for m in harness.metrics_of(bench, CELL, False)] == \
+        ["cand_evals_per_s.flat", "setup_s"]
 
 
 def run(root, fault=None, over=RETRYING):
@@ -227,8 +219,7 @@ def test_window_readers(window):
     assert harness.read_metric("exact.step_us.window", rec) is not None
 
 
-@pytest.mark.parametrize("name", ["exact.step_us", "exact.step_us.window",
-                                  "exact.lane_occupancy"])
+@pytest.mark.parametrize("name", METRICS)
 def test_readers_read_nothing_outside_their_engine(name, window):
     rec = dict(window(), engine="flat", trace_replays=32, steps_per_replay=16,
                timeline={"busy_s": 0.1, "window_s": 1.0})
