@@ -33,12 +33,6 @@ RETRYING = {"max_pods": 300, "mix": dict(faults.SMALL["mix"],
                                          check_parts=8)}
 
 
-@pytest.fixture(scope="module")
-def root() -> Path:
-    """The checkout, whose ``BENCHMARK.json`` lists the cell."""
-    return ROOT
-
-
 @pytest.mark.parametrize("form", [schema.test_top_level_keys,
                                   schema.test_names_units_and_texts,
                                   schema.test_every_cell_reports_enough],
@@ -69,11 +63,11 @@ def test_the_pending_cell_resolves_to_its_files():
         ["cand_evals_per_s.flat", "setup_s"]
 
 
-def run(root, fault=None, over=RETRYING):
+def run(fault=None, over=RETRYING):
     over = dict(over)
     if fault is not None:
         over["fault"] = fault
-    line, _ = harness.run_cell(root, CELL, 5, 0.3, False, device="cpu",
+    line, _ = harness.run_cell(ROOT, CELL, 5, 0.3, False, device="cpu",
                                overrides=over)
     return line
 
@@ -85,12 +79,11 @@ def run(root, fault=None, over=RETRYING):
     faults.test_half_the_lanes_keep_the_last_generations_results,
     faults.test_an_answer_altered_where_it_is_produced,
 ], ids=lambda f: f.__name__)
-def test_the_faults_of_the_other_cells(planted, root, monkeypatch):
-    monkeypatch.setattr(faults, "ROOT", root)
+def test_the_faults_of_the_other_cells(planted):
     planted(CELL)
 
 
-def test_a_placement_altered_where_it_is_produced(root):
+def test_a_placement_altered_where_it_is_produced():
     def fault(pe):
         def change(params, res):
             res.assigned_node[:, 0] = (res.assigned_node[:, 0] + 1) % 16
@@ -98,12 +91,12 @@ def test_a_placement_altered_where_it_is_produced(root):
 
         faults._wrap_eval(pe, change)
 
-    line = run(root, fault)
+    line = run(fault)
     assert line["correct"] is False
     assert line["checks"]["int_mismatch"]["value"] > 0
 
 
-def test_a_retry_time_altered_where_it_is_produced(root):
+def test_a_retry_time_altered_where_it_is_produced():
     """Every pod whose creation time the retry rule rewrote is retried one
     time unit later; placements, counts and scores stay as they were."""
     cfg = harness.load_json("configs", "openb16-exact")
@@ -121,14 +114,14 @@ def test_a_retry_time_altered_where_it_is_produced(root):
 
         faults._wrap_eval(pe, change)
 
-    line = run(root, fault)
+    line = run(fault)
     assert sum(moved) > 0
     assert line["correct"] is False
     assert line["checks"]["int_mismatch"]["value"] > 0
     assert line["checks"]["fitness_gap"]["value"] == 0.0
 
 
-def test_a_lane_marked_aborted_that_the_reference_runs_through(root):
+def test_a_lane_marked_aborted_that_the_reference_runs_through():
     def fault(pe):
         def change(params, res):
             res.failed[1] = True
@@ -137,12 +130,12 @@ def test_a_lane_marked_aborted_that_the_reference_runs_through(root):
 
         faults._wrap_eval(pe, change)
 
-    line = run(root, fault)
+    line = run(fault)
     assert line["correct"] is False
     assert line["checks"]["short_lanes"]["value"] > 0
 
 
-def test_the_control_is_not_correct(root):
+def test_the_control_is_not_correct():
     """The reference computed in bfloat16 in the program's place."""
     cfg = harness.load_json("configs", "openb16-exact")
     cluster, pods, _ = inputs.reference_inputs(cfg, RETRYING["max_pods"])
@@ -164,7 +157,7 @@ def test_the_control_is_not_correct(root):
 
         faults._wrap_eval(pe, change)
 
-    line = run(root, fault)
+    line = run(fault)
     assert line["correct"] is False
     c = line["checks"]
     assert c["int_mismatch"]["value"] > 0 or \
